@@ -4,7 +4,7 @@ The reference publishes no numbers (BASELINE.md), so this script measures a
 faithful single-threaded CPU implementation of each stage's math — the
 numpy/OpenCV-semantics oracles in ops/cv_exact.py, which reproduce exactly
 what the C++ reference computes — to establish the comparison floor for the
-TPU numbers in bench.py.  Results in benchmarks/RESULTS.md.
+device numbers in bench.py.
 
 Run: python benchmarks/cpu_floor.py  [--lines N]
 """

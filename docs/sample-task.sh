@@ -1,6 +1,6 @@
 #!/bin/sh
 # End-to-end scene processing, mirroring the reference's DOC/sample-task.sh
-# 4-step flow with the TPU-native CLI.  Adjust paths/params per scene.
+# 4-step flow with the oiptpu CLI.  Adjust paths/params per scene.
 set -e
 
 AOS=KASHI_TJ3-01_20220817_031259_1.dat

@@ -1,6 +1,6 @@
 // oipnative — host-side native runtime for opticalimageprocessor_tpu.
 //
-// TPU-native rebuild of the reference's host-bound inner loops
+// Native rebuild of the reference's host-bound inner loops
 // (aux_separator.h frame scanning/CRC, InflateSubImage byte swap,
 // imageop.h TIFF output):
 //   * CRC-16/CCITT-FALSE over frame batches (table-driven)

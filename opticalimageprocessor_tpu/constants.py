@@ -36,7 +36,7 @@ IBPA_MAX_LINEOVERLAP = 3000
 IBPA_MIN_PROCESSLINES = 1500
 
 # OpenCV-remap row limits honoured by the reference (imageop.h:19-20).  The
-# TPU kernels have no such limit, but the section sizes remain the unit of
+# device kernels have no such limit, but the section sizes remain the unit of
 # host<->HBM streaming and of cross-device sharding.
 REMAP_ROW_GUARD = 32767
 REMAP_SECTION_ROWS = 30000

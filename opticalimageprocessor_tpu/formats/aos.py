@@ -20,7 +20,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .crc16 import crc16_ccitt_false, crc16_ccitt_false_many
+from .crc16 import crc16_ccitt_false
 
 # --- AOS physical frames (aux_separator.h:29-57) ---------------------------
 SYNC_BYTES = b"\x1a\xcf\xfc\x1d"
@@ -510,6 +510,16 @@ def build_image_frame(
     return aux + payload + bytes(meta)
 
 
+def _batch_crc(frames: np.ndarray, start: int, length: int) -> np.ndarray:
+    """CRC-16/CCITT-FALSE of bytes [start, start+length) of every row of a
+    C-contiguous (n, frame_bytes) u8 array (native sweep when built)."""
+    from ..utils import native
+
+    n, frame_bytes = frames.shape
+    offsets = np.arange(n, dtype=np.int64) * frame_bytes + start
+    return native.crc16_many(frames.reshape(-1), offsets, length)
+
+
 def build_imtr_stream(
     payloads: np.ndarray, start_seq: int = 1, chid: int = IMTR_CHID_CMOS1
 ) -> np.ndarray:
@@ -530,7 +540,7 @@ def build_imtr_stream(
     frames[:, IMTR_CHID_OFF] = chid
     frames[:, IMTR_DTMARK_OFF] = IMTR_DTMARK_IMG
     frames[:, IMTR_IMGDATA_OFF : IMTR_IMGDATA_OFF + IMTR_IMGDATA_BYTES] = payloads
-    crc = crc16_ccitt_false_many(frames[:, :IMTR_CRC_OFF])
+    crc = _batch_crc(frames, 0, IMTR_CRC_OFF)
     frames[:, IMTR_CRC_OFF] = (crc >> 8).astype(np.uint8)
     frames[:, IMTR_CRC_OFF + 1] = (crc & 0xFF).astype(np.uint8)
     frames[:, IMTR_ENDSIG_OFF : IMTR_ENDSIG_OFF + 4] = np.frombuffer(
@@ -559,7 +569,7 @@ def build_aos_stream(
     ).astype(np.uint8)
     # VCDUINJ left 0x00000000 (valid)
     frames[:, AOS_DATA_OFF : AOS_DATA_OFF + AOS_DATA_BYTES] = payloads
-    crc = crc16_ccitt_false_many(frames[:, AOS_HEADER_OFF:AOS_CRC_OFF])
+    crc = _batch_crc(frames, AOS_HEADER_OFF, AOS_CRC_OFF - AOS_HEADER_OFF)
     frames[:, AOS_CRC_OFF] = (crc >> 8).astype(np.uint8)
     frames[:, AOS_CRC_OFF + 1] = (crc & 0xFF).astype(np.uint8)
     return frames

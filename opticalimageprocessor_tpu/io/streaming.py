@@ -2,7 +2,7 @@
 
 The reference never holds less than the whole strip in RAM (LoadRawImage,
 imageop.h:110-127) and streams only its remap through 30000-row sections.
-For multi-GB scenes the TPU pipeline must instead keep HBM bounded and
+For multi-GB scenes the device pipeline must instead keep HBM bounded and
 overlap host I/O + H2D transfer with device compute (SURVEY §7:
 "double-buffer and overlap DMA with compute").
 

@@ -6,7 +6,7 @@ Stages (call stack parity with SURVEY §3.1):
 1. geometry checks          (CheckFilesAttributes, preproc.h:552-572)
 2. PAN/MSS load + band split (LoadPAN/LoadMSS, preproc.h:51-80) — here:
    memory-mapped, sectioned, bands as a leading array axis
-3. RRC                      (DoRRC4PAN/DoRRC4MSS -> ops.rrc Pallas kernel)
+3. RRC                      (DoRRC4PAN/DoRRC4MSS -> ops.rrc)
 4. inter-band correlation   (CalcInterBandCorrelation, preproc.h:224-347):
    slices x sections tile extraction, x4 cubic upsample of MSS tiles,
    batched phase correlation on the device
@@ -18,7 +18,7 @@ Stages (call stack parity with SURVEY §3.1):
    cv::imwrite treats 4-channel data as BGRA and stores RGBA, i.e. channels
    [2,1,0,3] — reproduced via ``bgr_tiff_order``.
 
-TPU mapping: RRC and the alignment remap run as device kernels over
+Device mapping: RRC and the alignment remap run as device kernels over
 sections; all (sections x slices x bands) correlation tiles are batched into
 one vmapped FFT; only the tiny shift statistics return to the host for the
 float64 polynomial fit.
@@ -74,7 +74,7 @@ class PreProcessor:
     quantized_coords: bool = False
     bgr_tiff_order: bool = True
     pixels_per_line: int = PIXELS_PER_LINE   # test hook; camera default 12288
-    # fast=True: TPU fast resample (blocked MXU matmuls, whole-strip chunked
+    # fast=True: fast resample (blocked matmuls, whole-strip chunked
     # streaming instead of the reference's bordered sections; within 1 DN of
     # the parity path, see ops/resample.remap_band_fast)
     fast: bool = False

@@ -23,7 +23,7 @@ Phase 1 — estimation from sampled windows only:
 Phase 2 — streamed transform:
   * sections of ``section_rows`` PAN lines are uploaded with their halo
     rows (true neighbour rows from the file; zeros at strip ends), pushed
-    through ONE jitted section step (RRC both PANs + bands, banded-MXU
+    through ONE jitted section step (RRC both PANs + bands, banded-matmul
     alignment + prestitch resamples, seam concat), and drained into the
     streaming writers;
   * the next section's device work is dispatched *before* the previous
@@ -82,25 +82,27 @@ def _reg_batch_fn():
     import jax
     import jax.numpy as jnp
 
-    from ..parallel.sharded import _rrc_jnp
-    from ..parallel.sharded_scene import _windowed_peak_tile
+    from ..ops.rrc import rrc_apply
+    from ..ops import phasecorr
 
     @functools.partial(
-        jax.jit, static_argnames=("pad", "brows", "use_fused", "win")
+        jax.jit, static_argnames=("pad", "dot_dtype", "win")
     )
     def reg_batch(
         pan_tiles, band_tiles, pan_par, mss_par,
-        *, pad, brows, use_fused, win,
+        *, pad, dot_dtype, win,
     ):
         """(Ts, R, C) x (Ts, 4, r, c) tiles + per-tile RRC param slices ->
         (dx, dy, rs) each (Ts, 4)."""
         def one(args):
             pt, bt, pp, mp = args
-            pan_c = _rrc_jnp(pt, pp)
+            pan_c = rrc_apply(pt, pp)
             bs_c = jnp.stack(
-                [_rrc_jnp(bt[b], mp[b]) for b in range(MSS_BANDS)]
+                [rrc_apply(bt[b], mp[b]) for b in range(MSS_BANDS)]
             )
-            return _windowed_peak_tile(pan_c, bs_c, pad, brows, use_fused, win)
+            return phasecorr.band_window_peaks(
+                pan_c, bs_c, pad, win, dot_dtype
+            )
 
         return jax.lax.map(one, (pan_tiles, band_tiles, pan_par, mss_par))
 
@@ -119,8 +121,8 @@ def _stt_batch_fn():
         f32 = jnp.float32
 
         def one(args):
-            f1r, f1i = phasecorr.rfft2_padded(args[0].astype(f32), pad, True)
-            f2r, f2i = phasecorr.rfft2_padded(args[1].astype(f32), pad, True)
+            f1r, f1i = phasecorr.rfft2_padded(args[0].astype(f32), pad)
+            f2r, f2i = phasecorr.rfft2_padded(args[1].astype(f32), pad)
             return phasecorr.peak_from_spectra_windowed(
                 f1r, f1i, f2r, f2i, pad, win[0], win[1]
             )
@@ -197,14 +199,14 @@ def _section_math(
     import jax.numpy as jnp
 
     from ..ops import resample
-    from ..parallel.sharded import _rrc_jnp
+    from ..ops.rrc import rrc_apply
 
     width = p1_sec.shape[1]
     sec_rows = p1_sec.shape[0]
 
-    p1c = _rrc_jnp(p1_sec, pan1_par)
+    p1c = rrc_apply(p1_sec, pan1_par)
     p2c = jnp.where(
-        p2_mask[:, None], _rrc_jnp(p2_pad, pan2_par), jnp.uint16(0)
+        p2_mask[:, None], rrc_apply(p2_pad, pan2_par), jnp.uint16(0)
     )
     prestt = resample._remap_const_over_padded(
         resample.pad_for_fast_remap(
@@ -233,7 +235,7 @@ def _mss_section_math(
     import jax.numpy as jnp
 
     from ..ops import resample
-    from ..parallel.sharded import _rrc_jnp
+    from ..ops.rrc import rrc_apply
 
     f32 = jnp.float32
     sec_b = mss_pad.shape[1] - 2 * (row_bound + 2)
@@ -241,7 +243,7 @@ def _mss_section_math(
     outs = []
     for b in range(MSS_BANDS):
         bc = jnp.where(
-            mss_mask[:, None], _rrc_jnp(mss_pad[b], mss_par[b]),
+            mss_mask[:, None], rrc_apply(mss_pad[b], mss_par[b]),
             jnp.uint16(0),
         )
         col_matrix = resample._col_interp_matrix(
@@ -377,16 +379,14 @@ def _estimate_registration(
     import jax.numpy as jnp
 
     from ..parallel.sharded_scene import _RegGeom
-    from ..ops import phasecorr, rrc
+    from ..ops import backend, phasecorr, rrc
 
     geom = _RegGeom.build(
         pan_strip.lines, pan_strip.pixels_per_line, slices, n_sections
     )
     pad = (geom.corr_rows, geom.cols)
     win = phasecorr.clamp_win(win, pad)
-    use_fused = (
-        jax.default_backend() == "tpu" and geom.brows % 8 == 0
-    )
+    dot_dtype = backend.band_dot_dtype()
     reg_batch = _reg_batch_fn()
 
     band_px = mss_strip.pixels_per_line // MSS_BANDS
@@ -447,7 +447,7 @@ def _estimate_registration(
             jnp.asarray(pan_tiles), jnp.asarray(band_tiles),
             jnp.asarray(pan_par, jnp.float32),
             jnp.asarray(mss_par, jnp.float32),
-            pad=pad, brows=geom.brows, use_fused=use_fused, win=win,
+            pad=pad, dot_dtype=dot_dtype, win=win,
         )
         stats.append((dx, dy, rs))
 

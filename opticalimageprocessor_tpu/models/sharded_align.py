@@ -180,7 +180,7 @@ def run_sharded_align(
     if not write_tiff:
         if multi_host:
             # the caller asked for a host array: replicate the raster over
-            # the mesh (an all-gather over DCN+ICI) so EVERY process
+            # the mesh (an all-gather across processes) so EVERY process
             # returns the identical full array.  Costs one full-raster
             # copy per device — the file drains below stay the scalable
             # route for large scenes.

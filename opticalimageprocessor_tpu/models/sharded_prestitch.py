@@ -13,7 +13,7 @@ max-Δy validity filter, "No valid delta value found" error) and a
   shard-by-shard in line order (reference DoRRC file contract,
   stitcher.h:141-146);
 * the constant-shift prestitch resample runs as a shard_map with ppermute
-  halo exchange over ICI, then drains to ``.PRESTT.RAW`` with the
+  halo exchange between devices, then drains to ``.PRESTT.RAW`` with the
   reference's line-count bookkeeping.
 """
 

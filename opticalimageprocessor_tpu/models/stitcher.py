@@ -95,7 +95,7 @@ class Stitcher:
     out_dir: str | None = None
     quantized_coords: bool = False
     pixels_per_line: int = PIXELS_PER_LINE   # test hook; camera default 12288
-    # fast=True: TPU fast constant-shift resample (blocked MXU matmuls,
+    # fast=True: fast constant-shift resample (blocked matmuls,
     # whole-strip chunked streaming instead of the reference's 30000-row
     # bordered sections); within 1 DN of the parity path
     fast: bool = False
@@ -169,7 +169,7 @@ class Stitcher:
     def _pre_stitch_fast(self, src, writer, out_path: str) -> int:
         """Fast-mode constant-shift resample: the translation expressed in
         the alignment-polynomial form (mapx = x + dx <=> cX = [4dx, 0];
-        G = dy <=> cY = [4dy, 0, 0]) runs through the blocked-MXU remap over
+        G = dy <=> cY = [4dy, 0, 0]) runs through the blocked-matmul remap over
         the whole strip (true neighbour rows between chunks).  The
         reference's ucut/bcut edge bookkeeping is preserved so output line
         count and placement match SectionaryRemap's."""

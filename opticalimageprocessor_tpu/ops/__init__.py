@@ -1,11 +1,11 @@
 """Device kernels + parity oracles.
 
-- rrc: fused per-column gain/bias (Pallas; byte-exact C-double cast)
-- phasecorr: cv::phaseCorrelate on XLA FFT / MXU DFT, windowed fast peak
+- backend: which path each stage takes on the platform it runs on
+- rrc: per-column gain/bias (byte-exact C-double cast in double-word f32)
+- phasecorr: cv::phaseCorrelate on jnp.fft, windowed fast peak
 - resample: cubic upsample, parity remap, fast blocked-matmul remap
-- fft_mxu: DFT-as-matmul transforms (four-step Cooley-Tukey)
 - polyfit: shift-model fitting
 - cv_exact: numpy oracle for the OpenCV semantics the reference relies on
 """
 
-from . import cv_exact, fft_mxu, phasecorr, polyfit, resample, rrc  # noqa: F401
+from . import backend, cv_exact, phasecorr, polyfit, resample, rrc  # noqa: F401

@@ -1,5 +1,5 @@
 """Reference-exact numpy implementations of the OpenCV primitives used by the
-reference pipeline.  These are the *parity oracles*: the TPU kernels in this
+reference pipeline.  These are the *parity oracles*: the device kernels in this
 package are tested against them, and they themselves are tested bit-for-bit
 against an installed ``cv2`` (when available).
 
@@ -154,8 +154,8 @@ def remap_cubic_u16_exact(
     S2*(wy_a*wx_2) + S3*(wy_a*wx_3)`` left-associated in float32, rows summed
     in order; final ``cvRound`` (half-to-even) + clamp.  Empirically this is
     within +-1 DN of cv2 5.0's SIMD kernel on ~99.5% of pixels and exactly
-    equal elsewhere; the installed-cv2 test asserts that envelope.  The TPU
-    kernels match THIS oracle bit-for-bit.
+    equal elsewhere; the installed-cv2 test asserts that envelope.  The
+    device kernels are tested against THIS oracle.
 
     Outside taps contribute the border value 0; a pixel whose whole 4x4
     support is outside the image is exactly 0 (remapBicubic's

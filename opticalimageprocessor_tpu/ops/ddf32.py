@@ -1,14 +1,19 @@
-"""Double-word float32 ("double-float") arithmetic for TPU device code.
+"""Double-word float32 ("double-float") arithmetic for device code.
 
-TPUs have no float64 ALU; where a reference computation is carried in C
-``double`` (the RRC cast chain, imageop.h:133-135, and the NumCpp
-polynomial fits, preproc.h:514-550), the device-side equivalents here use
+Where a reference computation is carried in C ``double`` (the NumCpp
+polynomial fits, preproc.h:514-550), the device-side equivalent here uses
 *pairs* of float32 values (hi, lo) with ``hi + lo`` representing the value
 to ~2^-48 relative precision — effectively double precision for the value
 ranges involved.  The building blocks are the classical error-free
-transformations (Knuth 2Sum, Dekker/Veltkamp split + 2Prod); XLA does not
-reassociate floating point by default, so the transformations stay exact
-under jit (the same property ops/rrc.py's byte-exact kernel relies on).
+transformations (Knuth 2Sum, an exact split + 2Prod).
+
+The transformations must stay exact when a backend contracts a multiply
+and an add into one FMA (XLA:GPU may).  So every product that feeds an
+addition is exact in float32: the split keeps the top 12 significant bits
+by masking (not Veltkamp's ``(2^12+1)*a`` trick, whose inexact product an
+FMA would absorb), and 2Prod sums the four exact partial products with
+2Sum instead of Dekker's ``ah*bh - fl(a*b)``.  Contracting an exact
+product into an add rounds the same sum once, so FMAs change nothing.
 
 All helpers are elementwise over arrays and jit/shard_map/vmap friendly.
 A dd value is a ``(hi, lo)`` tuple of same-shaped float32 arrays.
@@ -19,7 +24,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-_SPLITTER = 4097.0  # 2**12 + 1 for float32 Veltkamp splitting
+_HI_MASK = 0xFFFFF000  # keeps 1 + 11 stored = 12 significant bits
 
 
 def two_sum(a, b):
@@ -38,18 +43,23 @@ def fast_two_sum(a, b):
 
 
 def _split(a):
-    c = jnp.float32(_SPLITTER) * a
-    hi = c - (c - a)
+    """a = hi + lo exactly, each part with <= 12 significant bits."""
+    bits = jax.lax.bitcast_convert_type(a, jnp.uint32) & jnp.uint32(_HI_MASK)
+    hi = jax.lax.bitcast_convert_type(bits, jnp.float32)
     return hi, a - hi
 
 
 def two_prod(a, b):
-    """Error-free product: (p, e) with p = fl(a*b), p + e = a*b."""
-    p = a * b
+    """Error-free product: (p, e) with p + e = a*b (to ~2^-48 relative).
+
+    The four partial products of the 12-bit halves are exact in float32;
+    2Sum accumulates them without loss."""
     ah, al = _split(a)
     bh, bl = _split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
+    s, e1 = two_sum(ah * bh, ah * bl)
+    s, e2 = two_sum(s, al * bh)
+    s, e3 = two_sum(s, al * bl)
+    return fast_two_sum(s, e1 + e2 + e3)
 
 
 def dd(hi, lo=None):

@@ -1,4 +1,4 @@
-"""Phase-correlation shift estimation on TPU (XLA FFT).
+"""Phase-correlation shift estimation (jnp.fft).
 
 Implements ``cv::phaseCorrelate`` semantics (OpenCV phasecorr.cpp), used by
 the reference at two call sites:
@@ -17,10 +17,10 @@ Semantics reproduced exactly (float32):
      ifft sum directly),
   6. shift = (pad_center - centroid).
 
-TPU-first design: the whole routine is jit-compatible with static tile
-shapes, and `phase_correlate_batch` vmaps it over a leading tile axis so the
-200 tile-correlations of a default registration run execute as one batched
-FFT on the device (the reference loops them serially through OpenCV,
+The whole routine is jit-compatible with static tile shapes, and
+`phase_correlate_batch` maps it over a leading tile axis so the 200
+tile-correlations of a default registration run execute as one device
+program (the reference loops them serially through OpenCV,
 preproc.h:251-327).
 """
 
@@ -34,31 +34,19 @@ import numpy as np
 
 from .cv_exact import get_optimal_dft_size
 
-
-def _use_mxu_default() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except RuntimeError:
-        return False
+_HI = jax.lax.Precision.HIGHEST
 
 
-def rfft2_padded(x: jax.Array, pad_to: tuple[int, int], use_mxu: bool):
+def rfft2_padded(x: jax.Array, pad_to: tuple[int, int]):
     """Zero-pad to ``pad_to`` and rfft2; returns (re, im) float32 pair."""
     h, w = x.shape[-2], x.shape[-1]
     M, N = pad_to
     pad_width = [(0, 0)] * (x.ndim - 2) + [(0, M - h), (0, N - w)]
-    p = jnp.pad(x, pad_width)
-    if use_mxu:
-        from .fft_mxu import rfft2_mxu
-
-        return rfft2_mxu(p)
-    f = jnp.fft.rfft2(p)
+    f = jnp.fft.rfft2(jnp.pad(x, pad_width))
     return jnp.real(f), jnp.imag(f)
 
 
-def peak_from_spectra(
-    far, fai, fbr, fbi, pad_to: tuple[int, int], use_mxu: bool
-):
+def peak_from_spectra(far, fai, fbr, fbi, pad_to: tuple[int, int]):
     """Cross-power spectrum -> correlation peak (dx, dy, response), given
     precomputed half spectra of the two tiles (lets callers share the
     reference-tile FFT across many candidates)."""
@@ -67,33 +55,17 @@ def peak_from_spectra(
     pi = fai * fbr - far * fbi
     mag = jnp.sqrt(pr * pr + pi * pi)
     den = jnp.where(mag == 0, 1.0, mag)
-    if use_mxu:
-        from .fft_mxu import irfft2_real_mxu
-
-        corr = irfft2_real_mxu(pr / den, pi / den, N)
-    else:
-        c = jax.lax.complex(pr / den, pi / den)
-        corr = jnp.fft.irfft2(c, s=(M, N))
-    corr = jnp.fft.fftshift(corr)
+    c = jax.lax.complex(pr / den, pi / den)
+    corr = jnp.fft.fftshift(jnp.fft.irfft2(c, s=(M, N)))
     return _peak_and_centroid(corr, M, N)
 
 
-@functools.partial(jax.jit, static_argnames=("pad_to", "use_mxu"))
-def _phase_correlate_padded(
-    a: jax.Array,
-    b: jax.Array,
-    pad_to: tuple[int, int],
-    use_mxu: bool = False,
-):
-    """Core routine on already-shaped f32 tiles; returns (dx, dy, response).
-
-    ``use_mxu`` routes the transforms through ops/fft_mxu (DFT-as-matmul,
-    ~50x faster than XLA's TPU FFT lowering at these sizes; ~1e-7 relative
-    difference in the correlation surface)."""
-    M, N = pad_to
-    far, fai = rfft2_padded(a, pad_to, use_mxu)
-    fbr, fbi = rfft2_padded(b, pad_to, use_mxu)
-    return peak_from_spectra(far, fai, fbr, fbi, pad_to, use_mxu)
+@functools.partial(jax.jit, static_argnames=("pad_to",))
+def _phase_correlate_padded(a: jax.Array, b: jax.Array, pad_to):
+    """Core routine on already-shaped f32 tiles; returns (dx, dy, response)."""
+    far, fai = rfft2_padded(a, pad_to)
+    fbr, fbi = rfft2_padded(b, pad_to)
+    return peak_from_spectra(far, fai, fbr, fbi, pad_to)
 
 
 def _peak_and_centroid(corr: jax.Array, M: int, N: int):
@@ -159,32 +131,6 @@ def _upsample_filter_response(m: int, factor: int = 4):
     return re.astype(np.float32), im.astype(np.float32)
 
 
-def _hermitian_full(re, im, n: int):
-    """Complete a last-axis half spectrum (…, H, n//2+1) to (…, H, n)."""
-    keep = re.shape[-1]
-    mid_re = re[..., 1 : n - keep + 1]
-    mid_im = im[..., 1 : n - keep + 1]
-
-    def roll_flip(a):
-        return jnp.roll(jnp.flip(a, -2), 1, axis=-2)
-
-    tail_re = roll_flip(jnp.flip(mid_re, -1))
-    tail_im = roll_flip(-jnp.flip(mid_im, -1))
-    return (
-        jnp.concatenate([re, tail_re], axis=-1),
-        jnp.concatenate([im, tail_im], axis=-1),
-    )
-
-
-def band_full_spectrum_small(band: jax.Array):
-    """Full (not half) 2-D spectrum of a small band tile, as (re, im)."""
-    from .fft_mxu import rfft2_mxu
-
-    n = band.shape[-1]
-    fr, fi = rfft2_mxu(band.astype(jnp.float32))
-    return _hermitian_full(fr, fi, n)
-
-
 def upsampled_band_spectrum(band: jax.Array, factor: int = 4):
     """Half spectrum of the x``factor`` cubic-upsampled band tile, computed
     spectrally: F_up[Ky,Kx] = Hr(Ky) Hc(Kx) F_band[Ky mod m, Kx mod n].
@@ -194,13 +140,11 @@ def upsampled_band_spectrum(band: jax.Array, factor: int = 4):
     in the tiles' 2-3 border samples).  Returns (re, im) with shape
     (factor*m, (factor*n)//2 + 1).
     """
-    from .fft_mxu import rfft2_mxu
-
     m, n = band.shape
     M, N = factor * m, factor * n
     keep = N // 2 + 1
-    fr, fi = rfft2_mxu(band.astype(jnp.float32))
-    fr, fi = _hermitian_full(fr, fi, n)      # (m, n) full small spectrum
+    f = jnp.fft.fft2(band.astype(jnp.float32))  # (m, n) full small spectrum
+    fr, fi = jnp.real(f), jnp.imag(f)
 
     # tile: rows x factor, cols to cover Kx in [0, keep)
     fr = jnp.tile(fr, (factor, 1))
@@ -256,10 +200,12 @@ def clamp_win(win: tuple[int, int], pad_to: tuple[int, int]):
     )
 
 
-@functools.partial(jax.jit, static_argnames=("pad_to", "win_y", "win_x"))
+@functools.partial(
+    jax.jit, static_argnames=("pad_to", "win_y", "win_x", "dot_dtype")
+)
 def peak_from_spectra_windowed(
     far, fai, fbr, fbi, pad_to: tuple[int, int],
-    win_y: int = 64, win_x: int = 64,
+    win_y: int = 64, win_x: int = 64, dot_dtype=jnp.float32,
 ):
     """Fast-mode peak: evaluate the (normalised) correlation surface only at
     shifts |dy| <= win_y, |dx| <= win_x, as two small matmuls against DFT
@@ -272,6 +218,11 @@ def peak_from_spectra_windowed(
     be found — such tiles surface as low-response samples, which the
     pipeline's validity threshold already discards.  Windows must satisfy
     win < dim/2 (see :func:`clamp_win`).
+
+    ``dot_dtype`` is the operand type of the kx contraction: float32 runs
+    it at ``Precision.HIGHEST``; bfloat16 accumulates in float32 (peaks
+    within 2e-3 px of float32).  The ky contraction is always float32 at
+    ``Precision.HIGHEST``.
     """
     M, N = pad_to
     keep = far.shape[-1]
@@ -282,15 +233,24 @@ def peak_from_spectra_windowed(
     cr = pr / den
     ci = pi / den
 
-    from .fft_mxu import _mm
+    def mm_x(a, b):
+        if dot_dtype == jnp.float32:
+            return jnp.dot(a, b, precision=_HI)
+        return jnp.dot(
+            a.astype(dot_dtype), b.astype(dot_dtype),
+            preferred_element_type=jnp.float32,
+        )
+
+    def mm_y(a, b):
+        return jnp.dot(a, b, precision=_HI)
 
     cx_c, cx_s = (jnp.asarray(v) for v in _eval_consts(N, keep, win_x, False))
     # contract kx -> window columns (complex x complex evaluation basis)
-    dr = _mm(cr, cx_c) - _mm(ci, cx_s)
-    di = _mm(ci, cx_c) + _mm(cr, cx_s)
+    dr = mm_x(cr, cx_c) - mm_x(ci, cx_s)
+    di = mm_x(ci, cx_c) + mm_x(cr, cx_s)
     cy_c, cy_s = (jnp.asarray(v) for v in _eval_consts(M, M, win_y, True))
     # contract ky -> window rows, real output: Re((dr+idi)(cos+isin))
-    corr = (_mm(cy_c.T, dr) - _mm(cy_s.T, di)) / jnp.float32(M * N)
+    corr = (mm_y(cy_c.T, dr) - mm_y(cy_s.T, di)) / jnp.float32(M * N)
 
     return _centroid_on_window(corr, win_y, win_x)
 
@@ -323,37 +283,46 @@ def _centroid_on_window(corr: jax.Array, win_y: int, win_x: int):
     return dx, dy, s
 
 
-_HI = jax.lax.Precision.HIGHEST
+def band_window_peaks(pan_tile, band_tiles, pad_to, win, dot_dtype):
+    """Fast windowed peaks of one PAN tile against its band tiles: the
+    PAN spectrum is shared, each band's x4-upsampled spectrum is built
+    spectrally (no padding: ``pad_to`` is the PAN tile shape), and the kx
+    contraction runs in ``dot_dtype`` (ops/backend.band_dot_dtype).
+    Returns (dx, dy, response), each (bands,)."""
+    far, fai = rfft2_padded(pan_tile.astype(jnp.float32), pad_to)
+    outs = [
+        peak_from_spectra_windowed(
+            far, fai, *upsampled_band_spectrum(band_tiles[b]), pad_to,
+            win[0], win[1], dot_dtype,
+        )
+        for b in range(band_tiles.shape[0])
+    ]
+    return tuple(jnp.stack([o[k] for o in outs]) for k in range(3))
 
 
-def phase_correlate(a, b, use_mxu: bool | None = None):
+def phase_correlate(a, b):
     """Single-pair correlation; returns python floats (dx, dy, response)."""
     a = jnp.asarray(a, jnp.float32)
     b = jnp.asarray(b, jnp.float32)
     M = get_optimal_dft_size(a.shape[0])
     N = get_optimal_dft_size(a.shape[1])
-    if use_mxu is None:
-        use_mxu = _use_mxu_default()
-    dx, dy, r = _phase_correlate_padded(a, b, (M, N), use_mxu)
+    dx, dy, r = _phase_correlate_padded(a, b, (M, N))
     return float(dx), float(dy), float(r)
 
 
-@functools.partial(jax.jit, static_argnames=("pad_to", "use_mxu"))
-def _phase_correlate_batch_padded(a, b, pad_to, use_mxu=False):
+@functools.partial(jax.jit, static_argnames=("pad_to",))
+def _phase_correlate_batch_padded(a, b, pad_to):
     return jax.lax.map(
-        lambda xy: _phase_correlate_padded(xy[0], xy[1], pad_to, use_mxu),
-        (a, b),
+        lambda xy: _phase_correlate_padded(xy[0], xy[1], pad_to), (a, b)
     )
 
 
-def phase_correlate_batch(a, b, use_mxu: bool | None = None):
+def phase_correlate_batch(a, b):
     """Batched correlation over a leading axis: (T, H, W) x (T, H, W) →
     (dx[T], dy[T], response[T]) as jnp arrays.  Tiles run sequentially
-    (lax.map) so HBM holds one tile's transform working set."""
+    (lax.map) so device memory holds one tile's transform working set."""
     a = jnp.asarray(a, jnp.float32)
     b = jnp.asarray(b, jnp.float32)
     M = get_optimal_dft_size(a.shape[1])
     N = get_optimal_dft_size(a.shape[2])
-    if use_mxu is None:
-        use_mxu = _use_mxu_default()
-    return _phase_correlate_batch_padded(a, b, (M, N), use_mxu)
+    return _phase_correlate_batch_padded(a, b, (M, N))

@@ -14,22 +14,22 @@ Three reference call sites are served here, all INTER_CUBIC (A = -0.75):
 * ``remap_constant_shift_u16`` — the pre-stitch whole-image translation
   (stitcher.h:92-100): the same kernel with degenerate per-column arrays.
 
-TPU-first structure: the maps are never materialised as (H, W) float arrays
-(the reference's hot loop #2, preproc.h:443-450).  Because mapx depends only
-on the column and mapy is y + G(x), the 4x4 cubic gather decomposes into a
-small *static* set of lane shifts (columns) and sublane shifts (rows),
-selected per pixel by comparison masks — multiply-adds on the VPU, no
-gather unit, no dynamic shapes.  The shift ranges are computed on the host
+Structure: the maps are never materialised as (H, W) float arrays (the
+reference's hot loop #2, preproc.h:443-450).  Because mapx depends only on
+the column and mapy is y + G(x), the 4x4 cubic gather decomposes into a
+small *static* set of column shifts and row shifts, selected per pixel by
+comparison masks — elementwise multiply-adds, no gathers, no dynamic
+shapes.  The shift ranges are computed on the host
 from the fitted polynomials and specialise the compiled kernel.
 
 Parity: the parity path reproduces ops/cv_exact.remap_cubic_u16_exact
 (same float32 weight expressions, same interior accumulation order, border
 value 0) in either coordinate convention (``quantized_coords=True`` =
-OpenCV <= 4.x 1/32-px grid, False = OpenCV 5.x continuous); bit-for-bit on
-the TPU backend, within 1 DN on backends whose codegen fuses multiply-adds
-(XLA:CPU).  The fast path (remap_band_fast*) additionally trades the
-float32 map-storage rounding and the VPU accumulation order for blocked
-MXU matmuls — within 1 DN of the parity path on imagery.
+OpenCV <= 4.x 1/32-px grid, False = OpenCV 5.x continuous); within 1 DN on
+backends whose codegen fuses multiply-adds (XLA:CPU, XLA:GPU).  The fast
+path (remap_band_fast*) additionally trades the float32 map-storage
+rounding and the elementwise accumulation order for blocked matmuls —
+within 1 DN of the parity path on imagery.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ _X4_BASE = (-2, -2, -1, -1)  # first-tap offset per phase
 def shifted_clipped(x: jax.Array, axis: int, off: int) -> jax.Array:
     """``x`` indexed at clip(arange(n)+off, 0, n-1) along ``axis`` — i.e. a
     shift with replicate-clamped edges — built from static slices + edge
-    repeats (never a gather: XLA:TPU lowers gathers to scalar loops)."""
+    repeats (never a gather)."""
     n = x.shape[axis]
     if off == 0:
         return x
@@ -101,7 +101,7 @@ def _upsample4_axis(x: jax.Array, axis: int) -> jax.Array:
 
     def take(idx0: int):
         # source tap index for output phase group: clip(arange(n)+idx0);
-        # realised as slices+edge repeats (no gathers on TPU)
+        # realised as slices+edge repeats (no gathers)
         return shifted_clipped(x, axis, idx0)
 
     wr = jnp.asarray(w, x.dtype)
@@ -279,7 +279,7 @@ def plan_for_constant_shift(
 
 
 # ---------------------------------------------------------------------------
-# Polynomial remap — device math (pure XLA; jit/shard_map/pallas friendly)
+# Polynomial remap — device math (pure XLA; jit/shard_map friendly)
 # ---------------------------------------------------------------------------
 
 def _cubic_weights_f32(t):
@@ -458,13 +458,13 @@ def remap_section_u16(src: jax.Array, plan: RemapPlan) -> jax.Array:
 
 
 # ---------------------------------------------------------------------------
-# Fast TPU remap: column cubic as one MXU matmul, rows as shifted MACs
+# Fast remap: column cubic as one blocked matmul, rows as shifted MACs
 # ---------------------------------------------------------------------------
 
 ROW_OFF_BOUND_FAST = 6   # static |floor(G)| bound for the fast path
 
 
-COL_BLOCK = 512      # lanes per column block
+COL_BLOCK = 512      # columns per block
 COL_HALO = 32        # max |mapx - x| the blocked matmul supports
 
 
@@ -474,15 +474,15 @@ def _col_interp_matrix(coeff_x, width: int, block: int | None = None,
 
     The horizontal 4-tap cubic at column x reads taps around
     ``mapx(x) = x + dx(x)`` with small |dx|; a dense (W, W) selection matrix
-    would waste W/4 of the MXU's work, so columns are processed in
+    would waste W/4 of the matmul work, so columns are processed in
     ``block``-wide blocks against (block + 2*halo, block) banded matrices:
     ``out[:, blk] = src[:, blk +- halo] @ M_blk``.
 
     Returns (n_blocks, block + 2*halo, block) float32; shifts beyond
     ``halo`` fall outside the band and produce border zeros.  Built in-graph
     from traced coefficients.  Defaults (COL_BLOCK/COL_HALO) support
-    |dx| <= 32; the device pipeline narrows the band (128/16) for ~30% less
-    MXU work on v5e.
+    |dx| <= 32; the device pipeline narrows the band (128/16), which needs
+    ~30% fewer multiply-adds.
     """
     f32 = jnp.float32
     if block is None:
@@ -552,14 +552,14 @@ def remap_band_fast(
     col_block: int | None = None,
     col_halo: int | None = None,
 ) -> jax.Array:
-    """TPU-fast alignment remap of a (rows, W) uint16 band.
+    """Fast alignment remap of a (rows, W) uint16 band.
 
     Same maps as :func:`remap_polynomial_u16` with two fast-path
     simplifications (each <= 1 DN vs the parity path, see tests):
     the vertical coordinate is the ideal ``y + G(x)`` (per-column constant
     offset/fraction, skipping the reference's float32 map-storage rounding at
-    large y), and the horizontal 4-tap sum runs as an MXU matmul
-    (highest-precision f32) instead of the oracle's grouped VPU order.
+    large y), and the horizontal 4-tap sum runs as a matmul
+    (highest-precision f32) instead of the oracle's grouped order.
     Works with traced coefficients; ``row_bound`` statically bounds |G|.
     """
     f32 = jnp.float32
@@ -580,13 +580,7 @@ def remap_band_fast(
     colg = _col_interp_apply(src.astype(f32), col_matrix)
     halo_top = row_bound + 1
     padded = jnp.pad(colg, ((halo_top, row_bound + 2), (0, 0)))
-    if _ROW_PASS_PALLAS:
-        acc = _fast_row_pass_pallas(
-            padded, _row_pass_coeffs(g, width, row_bound), rows, row_bound,
-            interpret=_ROW_PASS_INTERPRET,
-        )
-    else:
-        acc = _fast_row_pass(padded, g, rows, width, row_bound, halo_top)
+    acc = _fast_row_pass(padded, g, rows, width, row_bound, halo_top)
     return jnp.clip(jnp.rint(acc), 0.0, 65535.0).astype(jnp.uint16)
 
 
@@ -617,253 +611,6 @@ def _fast_row_pass(
     return acc
 
 
-def _row_pass_coeffs(g: jax.Array, width: int, row_bound: int) -> jax.Array:
-    """Per-column vertical MAC weights as one (U, W) stack, U = 2*rb + 4:
-    cu[v, x] = sum_a wys[a, x] * [floor(G[x]) + a - 1 == v - rb - 1]."""
-    f32 = jnp.float32
-    iy0 = jnp.floor(g).astype(jnp.int32)
-    fy = g - iy0.astype(f32)
-    wys = _cubic_weights_f32(fy)
-    rows = []
-    for u in range(-row_bound - 1, row_bound + 3):
-        cu = jnp.zeros((width,), f32)
-        for a in range(4):
-            cu = cu + jnp.where(iy0 + a - 1 == u, wys[a], f32(0))
-        rows.append(cu)
-    return jnp.stack(rows)
-
-
-# Opt-in Pallas vertical pass (False = XLA masked MACs, the measured
-# default; flip with set_row_pass_pallas for A/B on real hardware).
-_ROW_PASS_PALLAS: bool = False
-_ROW_PASS_INTERPRET: bool = False
-
-
-def set_row_pass_pallas(v: bool, interpret: bool = False) -> None:
-    """Route the band remap's vertical cubic through the Pallas
-    tile-resident kernel (:func:`_fast_row_pass_pallas`) instead of the
-    XLA masked-MAC passes (``interpret`` = run it in Pallas interpret
-    mode, for CPU parity tests)."""
-    global _ROW_PASS_PALLAS, _ROW_PASS_INTERPRET
-    _ROW_PASS_PALLAS = v
-    _ROW_PASS_INTERPRET = interpret
-
-
-def _fast_row_pass_pallas(
-    padded: jax.Array,
-    cu: jax.Array,
-    rows: int,
-    row_bound: int,
-    interpret: bool = False,
-) -> jax.Array:
-    """Vertical per-column MACs as ONE Pallas kernel.
-
-    ``padded``: (rows + U - 1, W) f32 column-interpolated buffer (U - 1
-    halo rows split rb+1 top / rb+2 bottom, matching
-    :func:`_fast_row_pass`'s layout); ``cu``: (U, W) weights from
-    :func:`_row_pass_coeffs`.  out[y, x] = sum_v cu[v, x] *
-    padded[y + v, x].  Each (TR, TC) output tile reads two stacked input
-    tiles + its weight block from VMEM and writes once — HBM traffic is
-    ~2 reads + 1 write of the buffer, vs up to U shifted reads if XLA
-    fails to fuse the MAC chain.  Opt-in pending an on-chip A/B
-    (docs/PERF.md).
-    """
-    from jax.experimental import pallas as pl
-
-    f32 = jnp.float32
-    U = 2 * row_bound + 4
-    total, width = padded.shape
-    assert total == rows + U - 1, (total, rows, U)
-    # one column stripe per grid step, all rows VMEM-resident: the buffer
-    # is read ONCE and the output written once.  Per-column VMEM cost is
-    # ~4 * (2*total + 3*rows) bytes (double-buffered input and output
-    # stripes + the f32 accumulator); pick the widest TC that fits a
-    # ~10 MB budget — the old flat (total+rows)*TC*4 guard ignored
-    # double-buffering and OOM'd scoped VMEM at chunk_rows=2048 on v5e.
-    col_bytes = 4 * (2 * total + 3 * rows)
-    TC = next(
-        (
-            c for c in (512, 256, 128)
-            if width % c == 0 and c * col_bytes <= 10 << 20
-        ),
-        None,
-    )
-    if width <= 512 and width % 128 == 0 and width * col_bytes <= 10 << 20:
-        TC = width
-    if TC is None:
-        # exotic widths / unchunked-huge rows: XLA path handles them
-        return _fast_row_pass_from_cu(padded, cu, rows)
-
-    def kernel(p, w, out):
-        acc = jnp.zeros((rows, TC), f32)
-        for v in range(U):
-            acc = acc + p[v : v + rows] * w[v][None, :]
-        out[...] = acc
-
-    return pl.pallas_call(
-        kernel,
-        grid=(width // TC,),
-        in_specs=[
-            pl.BlockSpec((total, TC), lambda j: (0, j)),
-            pl.BlockSpec((U, TC), lambda j: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((rows, TC), lambda j: (0, j)),
-        out_shape=jax.ShapeDtypeStruct((rows, width), f32),
-        interpret=interpret,
-    )(padded, cu)
-
-
-def _fast_row_pass_from_cu(
-    padded: jax.Array, cu: jax.Array, rows: int
-) -> jax.Array:
-    """XLA fallback of the (U, W)-weights vertical pass (same contract as
-    :func:`_fast_row_pass_pallas`)."""
-    U = cu.shape[0]
-    acc = jnp.zeros((rows, padded.shape[1]), jnp.float32)
-    for v in range(U):
-        acc = acc + jax.lax.dynamic_slice_in_dim(
-            padded, v, rows, 0
-        ) * cu[v][None, :]
-    return acc
-
-
-# ---------------------------------------------------------------------------
-# Fused col+row Pallas remap (opt-in): ONE kernel per strip, ~1 HBM read
-# + 1 write of the raster — the speed-of-light shape for the remap, vs
-# the staged path's materialised column-interp intermediate (docs/PERF.md
-# puts the staged align remap 10-25x above HBM SoL).
-# ---------------------------------------------------------------------------
-
-_FUSED_REMAP_PALLAS: bool = False
-_FUSED_REMAP_INTERPRET: bool = False
-FUSED_TILE_ROWS = 256
-
-
-def set_fused_remap_pallas(v: bool, interpret: bool = False) -> None:
-    """Route the chunked band remap through the fused single-kernel
-    col+row Pallas pass (:func:`_remap_fused_pallas`) instead of the
-    staged column-matmul + row-MAC XLA pipeline (``interpret`` = Pallas
-    interpret mode, for CPU parity tests)."""
-    global _FUSED_REMAP_PALLAS, _FUSED_REMAP_INTERPRET
-    _FUSED_REMAP_PALLAS = v
-    _FUSED_REMAP_INTERPRET = interpret
-
-
-def _remap_fused_pallas(
-    padded: jax.Array,
-    rows: int,
-    col_matrix: jax.Array,
-    g: jax.Array,
-    row_bound: int,
-    tile_rows: int = FUSED_TILE_ROWS,
-    interpret: bool = False,
-) -> jax.Array:
-    """Fused column-cubic + vertical-MAC remap as one Pallas kernel.
-
-    Same math as :func:`_remap_fast_over_padded` (derivation: for output
-    row ``y``, out[y, x] = sum_v cu[v, x] * colinterp(padded)[y + v + 1,
-    x] with U = 2*row_bound + 4 — the (rb+1, rb+2) zero-pad rows of the
-    staged path are never touched by the kept rows).  Each grid step DMAs
-    one (TR + U - 1, B + 2H) uint16 window from HBM into VMEM (manual
-    copy: the windows overlap in both axes, which BlockSpec indexing
-    cannot express), runs the banded column matmul on the MXU and the U
-    vertical MACs on the VPU entirely in VMEM, and writes one (TR, B)
-    uint16 tile.  HBM traffic is ~2.2 B/px read + 2 B/px write — the SoL
-    shape — vs the staged path's materialised f32 column-interp buffer,
-    block stack, and shifted MAC reads.
-
-    ``padded``: (>= rows + U, W) uint16 with row_bound + 2 context rows
-    above the first output row (the :func:`pad_for_fast_remap` layout);
-    ``col_matrix``: (nB, B + 2H, B) from :func:`_col_interp_matrix`;
-    ``g``: (W,) per-column vertical offset.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    f32 = jnp.float32
-    width = padded.shape[1]
-    U = 2 * row_bound + 4
-    n_blocks, bh, block = col_matrix.shape
-    halo = (bh - block) // 2
-    if U > 16:
-        raise ValueError(
-            f"row_bound {row_bound} needs {U} tap rows; the 8-aligned "
-            "window fetch covers <= 16 (row_bound <= 6)"
-        )
-    cu = _row_pass_coeffs(g, width, row_bound)          # (U, W)
-    cu_blocks = jnp.transpose(
-        cu.reshape(U, n_blocks, block), (1, 0, 2)
-    )                                                    # (nB, U, B)
-
-    TR = max(8, min(tile_rows, rows) // 8 * 8)
-    n_row_t = -(-rows // TR)
-    # Mosaic requires manually-DMA'd window slices aligned to the
-    # (8, 128) tiling in BOTH shape and start (measured v5e compile
-    # failures at (TR+U-1, block+2*halo)): fetch row-tile-aligned
-    # (TR + 16, WIN_CP) windows instead — starts (i*TR, j*block) are
-    # aligned by construction, the first tap row sits at offset 1, and
-    # the column matrix is zero-padded so the over-fetched lanes fall
-    # out of the matmul.
-    WIN_R = TR + 16
-    WIN_CP = -(-(block + 2 * halo) // 128) * 128
-    need_rows = n_row_t * TR + 16
-    need_cols = (n_blocks - 1) * block + WIN_CP
-    src2 = jnp.pad(
-        padded,
-        (
-            (0, max(need_rows - padded.shape[0], 0)),
-            (halo, need_cols - width - halo),
-        ),
-    )
-    mat_pad = jnp.pad(col_matrix, ((0, 0), (0, WIN_CP - bh), (0, 0)))
-
-    def kernel(src_hbm, mat, cub, out, win, sem):
-        j = pl.program_id(0)   # column block (slow axis: mat/cu cached)
-        i = pl.program_id(1)   # row tile (fast axis: walks down a stripe)
-        cp = pltpu.make_async_copy(
-            src_hbm.at[pl.ds(i * TR, WIN_R), pl.ds(j * block, WIN_CP)],
-            win,
-            sem,
-        )
-        cp.start()
-        cp.wait()
-        colg = jax.lax.dot_general(
-            # Mosaic has no direct u16<->f32 casts (measured v5e compile
-            # failure); route through i32 — exact for 16-bit values
-            win[...].astype(jnp.int32).astype(f32),
-            mat[0],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=f32,
-            precision=jax.lax.Precision.HIGHEST,  # match _col_interp_apply
-        )                                               # (WIN_R, B)
-        acc = jnp.zeros((TR, block), f32)
-        for v in range(U):
-            acc = acc + colg[v + 1 : v + 1 + TR] * cub[0, v][None, :]
-        out[...] = (
-            jnp.clip(jnp.rint(acc), 0.0, 65535.0)
-            .astype(jnp.int32)
-            .astype(jnp.uint16)
-        )
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_blocks, n_row_t),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, WIN_CP, block), lambda j, i: (j, 0, 0)),
-            pl.BlockSpec((1, U, block), lambda j, i: (j, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((TR, block), lambda j, i: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((n_row_t * TR, width), jnp.uint16),
-        scratch_shapes=[
-            pltpu.VMEM((WIN_R, WIN_CP), jnp.uint16),
-            pltpu.SemaphoreType.DMA,
-        ],
-        interpret=interpret,
-    )(src2, mat_pad, cu_blocks)
-    return out[:rows]
-
-
 def _band_g(coeff_y, width: int):
     """Per-column vertical offset G(x) from the fitted dy polynomial."""
     f32 = jnp.float32
@@ -892,17 +639,6 @@ def _remap_fast_over_padded(
     strip/section border (single-device path) or true neighbour rows from
     a ppermute halo exchange (the sharded scene pipeline)."""
     width = padded.shape[1]
-    # row_bound <= 6: the fused kernel's aligned window fetch covers at
-    # most 16 tap rows; wider bounds fall back to the staged path below
-    if (
-        _FUSED_REMAP_PALLAS
-        and width % col_matrix.shape[2] == 0
-        and row_bound <= 6
-    ):
-        return _remap_fused_pallas(
-            padded, rows, col_matrix, g, row_bound,
-            interpret=_FUSED_REMAP_INTERPRET,
-        )
     chunk_rows = min(chunk_rows, rows)
     n_chunks = -(-rows // chunk_rows)
     halo = row_bound + 2
@@ -1120,22 +856,6 @@ def remap_const_stitch_chunked(
             return stitched, prestt
         return stitched
 
-    if _FUSED_REMAP_PALLAS and width % col_matrix.shape[2] == 0:
-        # fused tail: RRC + column matmul + 4-tap vertical in ONE Pallas
-        # kernel for the PAN2 side; PAN1's RRC is a single elementwise
-        # XLA pass feeding the concat directly
-        prestt = _stitch_prestt_fused_pallas(
-            pan2_padded, pan2_params, col_matrix, iy0, jnp.stack(wys),
-            rows, halo, interpret=_FUSED_REMAP_INTERPRET,
-        )
-        p1c = rrc_block(pan1[:rows], pan1_params)
-        stitched = jnp.concatenate(
-            [p1c[:, : width - fold], prestt[:, fold:]], axis=1
-        )
-        if want_prestt:
-            return stitched, prestt
-        return stitched
-
     out = jax.lax.map(one, jnp.arange(n_chunks))
     if want_prestt:
         stitched, prestt = out
@@ -1144,151 +864,6 @@ def remap_const_stitch_chunked(
             prestt.reshape(n_chunks * chunk_rows, width)[:rows],
         )
     return out.reshape(n_chunks * chunk_rows, -1)[:rows]
-
-
-def _stitch_prestt_fused_pallas(
-    pan2_padded: jax.Array,
-    pan2_params: jax.Array,
-    col_matrix: jax.Array,
-    iy0: jax.Array,
-    wys: jax.Array,
-    rows: int,
-    halo: int,
-    tile_rows: int = FUSED_TILE_ROWS,
-    interpret: bool = False,
-) -> jax.Array:
-    """Fused RRC + constant-shift prestitch remap as one Pallas kernel.
-
-    Per grid step: DMA one (TR + 3, B + 2H) uint16 window of the raw
-    PAN2 strip (row offset includes the TRACED integer shift ``iy0``,
-    read from SMEM), apply the byte-exact RRC in VMEM with rows outside
-    the strip masked to 0 post-RRC (reference BORDER_CONSTANT), run the
-    banded column matmul on the MXU and the 4 vertical taps (traced
-    fraction weights ``wys`` from SMEM), write one uint16 tile.  HBM
-    traffic ~1 read + 1 write of the strip vs the staged path's
-    materialised corrected/column-interp intermediates.
-
-    ``pan2_padded``: (rows + 2*halo (+chunk fill), W) uint16, ``halo``
-    context rows above row 0 (zeros at the strip border); the column pad
-    is applied here.  Callers guarantee |iy0| <= halo - 3.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    from .rrc import _rrc_math
-
-    f32 = jnp.float32
-    width = pan2_padded.shape[1]
-    n_blocks, bh, block = col_matrix.shape
-    chalo = (bh - block) // 2
-    TR = max(8, min(tile_rows, rows) // 8 * 8)
-    n_row_t = -(-rows // TR)
-    # Mosaic requires manually-DMA'd window slices aligned to the (8, 128)
-    # tiling in shape and start, and the row start here would carry the
-    # TRACED shift iy0 — so fetch a statically-aligned (TR + pad_r, WIN_CP)
-    # window from (i*TR, j*block) instead and apply the traced offset with
-    # an in-VMEM dynamic slice.  pad_r covers the full supported shift
-    # range (|iy0| <= halo - 3: needed window rows are 2 .. TR+2*halo-2
-    # relative to i*TR); the over-fetched lanes fall out of the matmul via
-    # the zero-padded column matrix.
-    pad_r = -(-(2 * halo) // 8) * 8
-    WIN_R = TR + pad_r
-    WIN_CP = -(-(block + 2 * chalo) // 128) * 128
-    need_rows = n_row_t * TR + pad_r
-    need_cols = (n_blocks - 1) * block + WIN_CP
-    src2 = jnp.pad(
-        pan2_padded,
-        (
-            (0, max(need_rows - pan2_padded.shape[0], 0)),
-            (chalo, need_cols - width - chalo),
-        ),
-    )
-    mat_pad = jnp.pad(col_matrix, ((0, 0), (0, WIN_CP - bh), (0, 0)))
-    # per-block parameter slices over the column-padded axis
-    params_pad = jnp.pad(
-        pan2_params, ((0, 0), (chalo, need_cols - width - chalo))
-    )
-    params_blocks = jnp.stack(
-        [
-            jax.lax.dynamic_slice_in_dim(params_pad, j * block, WIN_CP, 1)
-            for j in range(n_blocks)
-        ]
-    )                                              # (nB, 6, WIN_CP)
-    iy0_s = jnp.asarray(iy0, jnp.int32).reshape(1)
-    wys_s = jnp.asarray(wys, f32).reshape(4)
-
-    def kernel(iy_ref, wy_ref, src_hbm, mat, prm, out, win, sem):
-        j = pl.program_id(0)   # column block (slow: mat/params cached)
-        i = pl.program_id(1)   # row tile
-        cp = pltpu.make_async_copy(
-            src_hbm.at[pl.ds(i * TR, WIN_R), pl.ds(j * block, WIN_CP)],
-            win,
-            sem,
-        )
-        cp.start()
-        cp.wait()
-        p2c = _rrc_math(
-            win[...].astype(jnp.int32),
-            *[prm[0, k][None, :] for k in range(6)],
-        ).astype(f32)
-        # rows outside the strip read 0 POST-RRC (border semantics):
-        # window row r holds global strip row i*TR + r - halo
-        g = (
-            jax.lax.broadcasted_iota(jnp.int32, (WIN_R, 1), 0)
-            + (i * TR - halo)
-        )
-        p2c = jnp.where((g >= 0) & (g < rows), p2c, f32(0))
-        colg = jax.lax.dot_general(
-            p2c,
-            mat[0],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=f32,
-            precision=jax.lax.Precision.HIGHEST,  # match _col_interp_apply
-        )                                           # (WIN_R, B)
-        # traced shift: output row y taps colg rows y + off .. y + off + 3
-        # with off = halo - 1 + iy0 (in 2 .. 2*halo - 4).  Mosaic has no
-        # dynamic_slice lowering; rotate rows up by off instead (the
-        # wrapped bottom rows land past row TR + 3 because
-        # off <= pad_r - 4, so the kept slice never sees them).  The shift
-        # is passed as the POSITIVE equivalent WIN_R - off: Mosaic's
-        # dynamic rotate mis-lowers negative amounts (measured on v5e:
-        # roll(-3) on 88 rows acts like roll(-43)), positive amounts are
-        # correct at every size probed.
-        shift = WIN_R - (halo - 1 + iy_ref[0])
-        if interpret:
-            taps = jnp.roll(colg, shift, axis=0)
-        else:
-            taps = pltpu.roll(colg, shift, 0)
-        acc = jnp.zeros((TR, block), f32)
-        for a in range(4):
-            acc = acc + taps[a : a + TR] * wy_ref[a]
-        # f32 -> u16 via i32: Mosaic lacks the direct cast (see
-        # _remap_fused_pallas)
-        out[...] = (
-            jnp.clip(jnp.rint(acc), 0.0, 65535.0)
-            .astype(jnp.int32)
-            .astype(jnp.uint16)
-        )
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_blocks, n_row_t),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec((1, WIN_CP, block), lambda j, i: (j, 0, 0)),
-            pl.BlockSpec((1, 6, WIN_CP), lambda j, i: (j, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((TR, block), lambda j, i: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((n_row_t * TR, width), jnp.uint16),
-        scratch_shapes=[
-            pltpu.VMEM((WIN_R, WIN_CP), jnp.uint16),
-            pltpu.SemaphoreType.DMA,
-        ],
-        interpret=interpret,
-    )(iy0_s, wys_s, src2, mat_pad, params_blocks)
-    return out[:rows]
 
 
 def remap_polynomial_u16(

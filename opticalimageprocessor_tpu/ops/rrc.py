@@ -1,4 +1,4 @@
-"""Relative Radiometric Correction — fused per-column gain/bias TPU kernel.
+"""Relative Radiometric Correction — per-column gain/bias in float32.
 
 Reference semantics (``imageop.h:129-138``)::
 
@@ -9,28 +9,28 @@ x86-64 builds of the reference) wrap-around through the int32 conversion:
 negative values wrap two's-complement, values outside int32 become
 0x80000000 (cvttsd2si) whose low 16 bits are 0.
 
-TPUs have no native float64, so the kernel reconstructs the double-precision
-result with *double-word float32 arithmetic*: ``k`` is pre-split on the host
-into exact-product pieces, the pixel value is split into 8-bit halves, the
-partial products are all exact in float32, and a 2Sum accumulation keeps a
+The correction reconstructs the double-precision result with *double-word
+float32 arithmetic*: ``k`` is pre-split on the host into exact-product
+pieces, the pixel value is split into 8-bit halves, the partial products
+are all exact in float32, and a 2Sum accumulation keeps a
 (hi, lo) pair carrying ~48 significant bits — more than enough to place the
 truncation boundary correctly except for values within ~2^-40 of an integer
 (where float64's own rounding is being chased; see tests for the measured
 zero mismatch rate over full uint16 sweeps).
 
-Everything is elementwise: the kernel is HBM-bandwidth-bound by design and
-fuses the uint16 load, correction, and uint16 store in one VMEM pass.
+Everything is elementwise: XLA fuses the uint16 load, correction and
+uint16 store into one pass (about half a plain copy's rate on the H100,
+PERF.md).  Every product of pixel bits
+and the top parameter pieces is exact in float32, so a backend that
+contracts multiply-adds into FMAs gets the same bits (the full uint16
+sweep is checked on the device).
 """
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def split_rrc_params(k: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -121,74 +121,15 @@ def _rrc_math(s_i32, k_ha, k_hb, k_lo, k_l2, b_hi, b_lo):
     return jnp.where(in_range, i & 0xFFFF, jnp.int32(0))
 
 
-def _rrc_kernel(src_ref, par_ref, out_ref):
-    s = src_ref[:].astype(jnp.int32)
-    p = par_ref[:]  # (6, TILE_C) float32
-    out = _rrc_math(
-        s,
-        p[0][None, :],
-        p[1][None, :],
-        p[2][None, :],
-        p[3][None, :],
-        p[4][None, :],
-        p[5][None, :],
-    )
-    out_ref[:] = out.astype(jnp.uint16)
-
-
-def _pick_tiles(rows: int, cols: int) -> tuple[int, int]:
-    # The kernel holds ~10 (tile_r, tile_c) f32/i32 temporaries live at once;
-    # (256, 1024) keeps the scoped-VMEM footprint ~11 MB incl. double
-    # buffers while amortising per-block scheduling over 4x fewer blocks
-    # than (256, 512).
-    tile_c = cols if cols <= 1024 else 1024
-    tile_r = 256 if rows >= 256 else max(16, rows)
-    return tile_r, tile_c
-
-
-def _rrc_pallas(src: jax.Array, params: jax.Array, interpret: bool = False):
-    rows, cols = src.shape
-    tile_r, tile_c = _pick_tiles(rows, cols)
-    grid = (pl.cdiv(rows, tile_r), pl.cdiv(cols, tile_c))
-    return pl.pallas_call(
-        _rrc_kernel,
-        out_shape=jax.ShapeDtypeStruct((rows, cols), jnp.uint16),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (tile_r, tile_c),
-                lambda i, j: (i, j),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec((6, tile_c), lambda i, j: (0, j), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (tile_r, tile_c), lambda i, j: (i, j), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(src, params)
-
-
-@functools.partial(jax.jit, static_argnames=("use_pallas", "interpret"))
-def rrc_apply(
-    src: jax.Array,
-    params: jax.Array,
-    use_pallas: bool | None = None,
-    interpret: bool = False,
-):
+@jax.jit
+def rrc_apply(src: jax.Array, params: jax.Array):
     """Apply RRC to a uint16 strip.
 
     ``src``: (rows, cols) uint16;  ``params``: (6, cols) float32 from
-    :func:`split_rrc_params`.  Returns (rows, cols) uint16.
-
-    Uses a Pallas TPU kernel (elementwise, single HBM pass); on non-TPU
-    backends falls back to the identical jnp math (same float32 ops, same
-    results).  ``use_pallas``/``interpret`` are test hooks.
+    :func:`split_rrc_params`.  Returns (rows, cols) uint16.  Plain
+    elementwise math that XLA fuses into one pass (and, on the scene
+    pipeline's fused routes, into its consumers).
     """
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
-    if use_pallas:
-        return _rrc_pallas(src, params, interpret=interpret)
     return _rrc_math(
         src.astype(jnp.int32),
         params[0][None, :],

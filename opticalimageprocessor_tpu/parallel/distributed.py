@@ -1,23 +1,24 @@
-"""Multi-host (DCN) launch path: env-driven ``jax.distributed`` setup.
+"""Multi-host launch path: env-driven ``jax.distributed`` setup.
 
-SURVEY §5's distributed-communication row covers two transports: ICI
+SURVEY §5's distributed-communication row covers two transports:
 collectives inside a jitted step (``sharded.py`` / ``sharded_scene.py``)
-and the cross-host (DCN) control plane that makes one logical mesh span
-several processes.  This module is the latter — the TPU-native
-equivalent of the reference's would-be MPI launcher: each host process
-calls :func:`maybe_initialize_distributed` before first backend use,
-after which ``jax.devices()`` is the GLOBAL device list, the existing
-``line_mesh()`` spans hosts, and the per-shard ingest callbacks
-(``sharded.ingest_line_sharded``) are invoked only for each host's
-addressable shards — per-host shard IO with zero code changes.
+and the cross-process control plane that makes one logical mesh span
+several processes.  This module is the latter — the equivalent of the
+reference's would-be MPI launcher: each process calls
+:func:`maybe_initialize_distributed` before first backend use, after
+which ``jax.devices()`` is the GLOBAL device list, the existing
+``line_mesh()`` spans processes, and the per-shard ingest callbacks
+(``sharded.ingest_line_sharded``) are invoked only for each process's
+addressable shards — per-process shard IO with zero code changes.
 
-Launch (one process per host)::
+Launch (one process per host, or one per GPU)::
 
-    OIP_DIST_COORD=host0:9876 OIP_DIST_NPROCS=4 OIP_DIST_PROCID=k \\
-        oiptpu scene --mesh 32 ...
+    OIP_DIST_COORD=localhost:9876 OIP_DIST_NPROCS=4 OIP_DIST_PROCID=k \\
+        oiptpu scene --mesh 4 ...
 
-Collectives ride ICI within a host's chips and DCN across hosts (XLA
-partitions them automatically from the same ``shard_map`` programs).
+Collectives go over NVLink between a host's GPUs (NCCL) and over the
+network across hosts; XLA partitions them from the same ``shard_map``
+programs.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The cubic resample needs a few rows of context beyond each device's local
 block (kernel support + the fitted dy range).  Each device sends its edge
-rows to its neighbours with `jax.lax.ppermute` over ICI and pads the strip
+rows to its neighbours with `jax.lax.ppermute` between devices and pads the strip
 ends with the border value 0 — reproducing, across devices, exactly what the
 reference's in-process sectioning reads (BORDER_CONSTANT at strip ends,
 neighbour rows elsewhere).

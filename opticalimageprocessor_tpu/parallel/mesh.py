@@ -3,7 +3,7 @@
 The unbounded axis of a push-broom scene is the line (row) axis; the
 framework shards it across devices — the moral equivalent of sequence
 parallelism for imagery (SURVEY §2: the reference's 20000-line sections with
-halo overlap become line-sharding + `ppermute` halo exchange over ICI).
+halo overlap become line-sharding + `ppermute` halo exchange between devices).
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ sharded over a 1-D device mesh and the reference's serial pipeline
    preproc.h:505-510) — so multi-chip coefficients match single-host
    coefficients exactly.
 3. ``remap`` — a second jitted shard_map: the alignment resample with
-   ppermute halo exchange over ICI (the cross-device analogue of the
+   ppermute halo exchange between devices (the cross-device analogue of the
    reference's in-process 20000-line sections, preproc.h:374-408).
 
 Sharded-mode semantics note: the resample sees true neighbour rows at shard
@@ -47,7 +47,7 @@ from ..constants import (
     IBCV_MIN_SLICES,
     MSS_BANDS,
 )
-from ..ops.rrc import _rrc_math
+from ..ops.rrc import rrc_apply
 from .halo import exchange_halo
 from .mesh import LINE_AXIS
 
@@ -116,7 +116,7 @@ def remap_band_dynamic(
     ppermute; otherwise zeros (single-shard strip).
 
     Fast-path maths (ops.resample.remap_band_fast): horizontal cubic as one
-    MXU matmul, vertical as per-column shifted MACs; within 1 DN of the
+    matmul, vertical as per-column shifted MACs; within 1 DN of the
     parity remap.
     """
     del y0  # vertical offset is per-column in the fast path
@@ -199,14 +199,6 @@ def auto_sections(lines_pan: int) -> int:
     return max(1, min(IBCV_DEF_SECTIONS, lines_pan // CORRELATION_LINES))
 
 
-def _rrc_jnp(strip: jax.Array, params: jax.Array) -> jax.Array:
-    """Elementwise RRC (the jnp path of ops.rrc.rrc_apply, identical f32
-    math to the Pallas kernel) — sharding-preserving under jit."""
-    return _rrc_math(
-        strip.astype(jnp.int32), *[params[i][None, :] for i in range(6)]
-    ).astype(jnp.uint16)
-
-
 @functools.lru_cache(maxsize=8)
 def _make_correlate_fn(
     mesh: Mesh,
@@ -215,7 +207,6 @@ def _make_correlate_fn(
     lines_mss: int,
     slices: int,
     sections: int,
-    use_mxu: bool,
     return_pan_c: bool = False,
 ):
     """Jitted over ``mesh``: RRC -> tile grid extraction -> tile-sharded
@@ -236,9 +227,9 @@ def _make_correlate_fn(
     pad_to = (get_optimal_dft_size(base_rows), get_optimal_dft_size(cols))
 
     def correlate(pan, mss, pan_params, mss_params):
-        pan_c = _rrc_jnp(pan, pan_params)
+        pan_c = rrc_apply(pan, pan_params)
         mss_c = jnp.stack(
-            [_rrc_jnp(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
+            [rrc_apply(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
         )
 
         pan_tiles = jnp.stack(
@@ -291,7 +282,6 @@ def _make_correlate_fn(
                         pf,
                         upsample4_f32(bs[b].astype(jnp.float32)),
                         pad_to,
-                        use_mxu,
                     )
                     for b in range(MSS_BANDS)
                 ]
@@ -472,7 +462,6 @@ def _make_stt_correlate_fn(
     line_per_section: int,
     overlap_cols: int,
     edge_cols: int,
-    use_mxu: bool,
 ):
     """Jitted over ``mesh``: extract the reference's ``sections`` sampled
     overlap-strip windows (stitcher.h:151-176: PAN1's right ``overlap-edge``
@@ -531,7 +520,6 @@ def _make_stt_correlate_fn(
                     args[0].astype(jnp.float32),
                     args[1].astype(jnp.float32),
                     pad_to,
-                    use_mxu,
                 )
 
             return jax.lax.map(one, (a, b))
@@ -557,7 +545,7 @@ def _make_rrc_fn(mesh: Mesh):
     """Jitted sharded elementwise RRC of one strip (sharding-preserving)."""
 
     def apply(strip, params):
-        return _rrc_jnp(strip, params)
+        return rrc_apply(strip, params)
 
     return jax.jit(
         apply,
@@ -639,15 +627,13 @@ def make_prestitch_step(
         (cX = [4*dx, 0], cY = [4*dy, 0, 0], the alignment-polynomial
         encoding of mapx = x + dx / mapy = y + dy).
     """
-    use_mxu = all(d.platform == "tpu" for d in mesh.devices.flat)
-
     def correlate(pan1, pan2, real_lines: int | None = None):
         # real_lines: the strip's true length when inputs arrive padded
         # to the mesh size (window geometry must use the real length)
         lines_pan, width = pan1.shape
         fn = _make_stt_correlate_fn(
             mesh, real_lines or lines_pan, width, sections,
-            line_per_section, overlap_cols, edge_cols, use_mxu,
+            line_per_section, overlap_cols, edge_cols,
         )
         return fn(pan1, pan2)
 
@@ -700,8 +686,6 @@ def make_align_step(
     """
     from ..ops import polyfit
 
-    use_mxu = all(d.platform == "tpu" for d in mesh.devices.flat)
-
     def step(
         pan, mss, pan_params, mss_params, line_offset: int = 0,
         real_lines_pan: int | None = None,
@@ -718,8 +702,7 @@ def make_align_step(
         *_, centers = section_geometry(real_pan, width, slices, nsec)
 
         correlate = _make_correlate_fn(
-            mesh, real_pan, width, lines_mss, slices, nsec, use_mxu,
-            want_pan_c,
+            mesh, real_pan, width, lines_mss, slices, nsec, want_pan_c,
         )
         outs = correlate(pan, mss, pan_params, mss_params)
         mss_c, dx, dy, rs = outs[:4]

@@ -3,7 +3,7 @@
 ``models/device_pipeline.make_device_pipeline`` — the bench.py surface —
 runs the whole per-scene compute chain (RRC both PANs + the MSS bands,
 fast sections x slices registration, dd-f32 polynomial fit, on-device stt
-estimation, banded-MXU alignment + prestitch resamples, CMOS seam concat)
+estimation, banded-matmul alignment + prestitch resamples, CMOS seam concat)
 as ONE jitted program on one chip.  This module runs the *same fast-mode
 math* SPMD over an ``n_devices`` 1-D ``line`` mesh (the ``scene --mesh N``
 CLI route):
@@ -13,14 +13,15 @@ CLI route):
   line-sharded strips and redistributed over the *tile* axis
   (with_sharding_constraint), then each device runs the identical
   single-tile fast math under shard_map — the windowed cross-power peaks
-  ride the fused Pallas kernel on TPU exactly like the single-chip path;
+  run the kx contraction in the backend policy's dtype (ops/backend),
+  exactly like the single-chip path;
 * the tiny (dx, dy, response) statistics are fitted with the same dd-f32
   fit (replicated — XLA inserts the all-gather), so multi-chip
   coefficients match single-chip coefficients given the same samples;
 * the alignment and prestitch resamples run under shard_map with
-  ppermute halo exchange over ICI (true neighbour rows at shard seams —
+  ppermute halo exchange between devices (true neighbour rows at shard seams —
   the cross-device analogue of the reference's in-process sectioning,
-  preproc.h:374-408 / imageop.h:230-275), reusing the banded-MXU chunked
+  preproc.h:374-408 / imageop.h:230-275), reusing the banded-matmul chunked
   remap cores (ops/resample._remap_fast_over_padded /
   _remap_const_over_padded);
 * the seam concat is a per-shard column concat (no communication).
@@ -41,10 +42,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..constants import CORRELATION_LINES, IBCV_DEF_THRESHOLD, MSS_BANDS
-from ..ops import phasecorr, resample
+from ..ops import backend, phasecorr, resample
+from ..ops.rrc import rrc_apply
 from .halo import exchange_halo
 from .mesh import LINE_AXIS
-from .sharded import _rrc_jnp, pad_to  # noqa: F401 — pad_to re-exported
+from .sharded import pad_to  # noqa: F401 — pad_to re-exported
 
 
 def _pad_tile_axis(t: jax.Array, t_total: int, t_pad: int) -> jax.Array:
@@ -99,31 +101,8 @@ class _RegGeom:
         )
 
 
-def _windowed_peak_tile(p, bs, pad, brows, use_fused, win):
-    """Fast windowed peaks of one PAN tile vs its 4 band tiles (the
-    register_fast per-slice math: shared PAN spectrum, spectral band
-    upsample, band-batched fused Pallas cross-power on TPU)."""
-    far, fai = phasecorr.rfft2_padded(p.astype(jnp.float32), pad, True)
-    if use_fused:
-        from ..ops.phasecorr_pallas import windowed_crosspower_fused_bands
-
-        fbr4, fbi4 = phasecorr.band_full_spectrum_small(bs)
-        return windowed_crosspower_fused_bands(
-            far, fai, fbr4, fbi4, pad, brows, win[0], win[1]
-        )
-    outs = []
-    for b in range(MSS_BANDS):
-        fbr, fbi = phasecorr.upsampled_band_spectrum(bs[b])
-        outs.append(
-            phasecorr.peak_from_spectra_windowed(
-                far, fai, fbr, fbi, pad, win[0], win[1]
-            )
-        )
-    return tuple(jnp.stack([o[k] for o in outs]) for k in range(3))
-
-
 def _correlate_sharded(
-    mesh, pan_c, mss_c, g: _RegGeom, use_fused, win, pan_params=None
+    mesh, pan_c, mss_c, g: _RegGeom, dot_dtype, win, pan_params=None
 ):
     """Extract the tile grid from line-sharded strips, redistribute over
     the tile axis, run the fast windowed peaks under shard_map.
@@ -145,7 +124,7 @@ def _correlate_sharded(
             (sec * g.sec_stride + g.corr_rows, (i + 1) * g.cols),
         )
         if pan_params is not None:
-            t = _rrc_jnp(t, pan_params[:, i * g.cols : (i + 1) * g.cols])
+            t = rrc_apply(t, pan_params[:, i * g.cols : (i + 1) * g.cols])
         return t
 
     pan_tiles = jnp.stack(
@@ -186,8 +165,8 @@ def _correlate_sharded(
 
     def corr_local(pt, bt):
         return jax.lax.map(
-            lambda args: _windowed_peak_tile(
-                args[0], args[1], pad, g.brows, use_fused, win
+            lambda args: phasecorr.band_window_peaks(
+                args[0], args[1], pad, win, dot_dtype
             ),
             (pt, bt),
         )
@@ -285,12 +264,13 @@ def make_sharded_scene_fn(
     """
     f32 = jnp.float32
     n_dev = mesh.shape[LINE_AXIS]
-    use_fused = all(d.platform == "tpu" for d in mesh.devices.flat)
+    dot_dtype = backend.band_dot_dtype(
+        backend.platform_of(mesh.devices.flat)
+    )
     lines_mss = lines_pan // MSS_BANDS
     lines_pan_pad = pad_to(mesh, lines_pan)
     lines_mss_pad = pad_to(mesh, lines_mss)
     geom = _RegGeom.build(lines_pan, width, slices, n_sections)
-    use_fused = use_fused and geom.brows % 8 == 0
 
     # --- stt geometry (stt_estimate_fast) ---
     lps = stt_lines or max(64, min(16000, lines_pan // stt_sections))
@@ -341,11 +321,9 @@ def make_sharded_scene_fn(
         def stt_local(a, b):
             def one(args):
                 f1r, f1i = phasecorr.rfft2_padded(
-                    args[0].astype(f32), (lps, overlap_cols), True
-                )
+                    args[0].astype(f32), (lps, overlap_cols))
                 f2r, f2i = phasecorr.rfft2_padded(
-                    args[1].astype(f32), (lps, overlap_cols), True
-                )
+                    args[1].astype(f32), (lps, overlap_cols))
                 return phasecorr.peak_from_spectra_windowed(
                     f1r, f1i, f2r, f2i, (lps, overlap_cols),
                     stt_win[0], stt_win[1],
@@ -379,7 +357,7 @@ def make_sharded_scene_fn(
         # extraction, and the remap shard_map RRCs per shard (halo rows
         # exchange post-RRC, so strip-end zeros stay border-0 semantics)
         mss_c = jnp.stack(
-            [_rrc_jnp(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
+            [rrc_apply(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
         )
         if lines_mss_pad != lines_mss:
             # zero-filled pad rows must stay border-0 post-RRC
@@ -388,7 +366,7 @@ def make_sharded_scene_fn(
                 (rows_m < lines_mss)[None, :, None], mss_c, jnp.uint16(0)
             )
         dx, dy, rs = _correlate_sharded(
-            mesh, pan1, mss_c, geom, use_fused, win, pan_params=pan1_params
+            mesh, pan1, mss_c, geom, dot_dtype, win, pan_params=pan1_params
         )
         coeff_x, coeff_y, n_valid = _fit_bands(
             geom.centers, dx, dy, rs, threshold
@@ -411,8 +389,8 @@ def make_sharded_scene_fn(
                 mss_l, cxs, cys, loc_mss, chunk_rows, row_bound,
                 col_block, col_halo,
             )
-            p1c_l = _rrc_jnp(p1_l, p1par)
-            p2c_l = _rrc_jnp(p2_l, p2par)
+            p1c_l = rrc_apply(p1_l, p1par)
+            p2c_l = rrc_apply(p2_l, p2par)
             if lines_pan_pad != lines_pan:
                 # the zero-filled bottom pad rows must read border-0
                 # post-RRC (they feed the last real shard's halo)
@@ -506,15 +484,16 @@ def make_sharded_mss_align_fn(
     (``lines_pan`` = real length).
     """
     n_dev = mesh.shape[LINE_AXIS]
-    use_fused = all(d.platform == "tpu" for d in mesh.devices.flat)
+    dot_dtype = backend.band_dot_dtype(
+        backend.platform_of(mesh.devices.flat)
+    )
     lines_mss = lines_pan // MSS_BANDS
     lines_mss_pad = pad_to(mesh, lines_mss)
     geom = _RegGeom.build(lines_pan, width, slices, n_sections)
-    use_fused = use_fused and geom.brows % 8 == 0
 
     def align(pan_c, mss, mss_params):
         mss_c = jnp.stack(
-            [_rrc_jnp(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
+            [rrc_apply(mss[b], mss_params[b]) for b in range(MSS_BANDS)]
         )
         if lines_mss_pad != lines_mss:
             rows_m = jnp.arange(lines_mss_pad)
@@ -522,7 +501,7 @@ def make_sharded_mss_align_fn(
                 (rows_m < lines_mss)[None, :, None], mss_c, jnp.uint16(0)
             )
         dx, dy, rs = _correlate_sharded(
-            mesh, pan_c, mss_c, geom, use_fused, win
+            mesh, pan_c, mss_c, geom, dot_dtype, win
         )
         coeff_x, coeff_y, n_valid = _fit_bands(
             geom.centers, dx, dy, rs, threshold

@@ -10,16 +10,29 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
 
 
-def _lib_path() -> str:
-    here = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
-    return os.path.join(here, "native", "liboipnative.so")
+def build_library(native_dir: str = _NATIVE_DIR) -> str | None:
+    """Path of ``native_dir``/build/liboipnative.so, built from the
+    committed sources by ``native_dir``/build.sh when absent; None when it
+    cannot be built (no compiler)."""
+    path = os.path.join(native_dir, "build", "liboipnative.so")
+    if not os.path.exists(path):
+        subprocess.run(
+            ["sh", os.path.join(native_dir, "build.sh")],
+            capture_output=True, check=False,
+        )
+    return path if os.path.exists(path) else None
 
 
 def _load():
@@ -27,13 +40,8 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
-    path = _lib_path()
-    if not os.path.exists(path):
-        # try building it once
-        build = os.path.join(os.path.dirname(path), "build.sh")
-        if os.path.exists(build):
-            os.system(f"sh {build} >/dev/null 2>&1")
-    if os.path.exists(path):
+    path = build_library()
+    if path is not None:
         try:
             lib = ctypes.CDLL(path)
             lib.oip_crc16.restype = ctypes.c_uint16

@@ -1,4 +1,4 @@
-"""Worker process for the 2-process DCN launch test (not a test module).
+"""Worker process for the 2-process launch test (not a test module).
 
 Spawned by ``test_parallel.py::test_two_process_align_matches_single``.
 Each process owns 4 virtual CPU devices; together they form the same

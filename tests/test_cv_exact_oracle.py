@@ -2,7 +2,7 @@
 
 The oracle (ops/cv_exact.py) encodes the semantics the C++ reference gets
 from cv::remap / cv::resize / cv::phaseCorrelate; these tests pin the oracle
-to the real library so the TPU kernels can be tested against the oracle with
+to the real library so the device kernels can be tested against the oracle with
 confidence.
 """
 

@@ -47,12 +47,9 @@ def test_register_fast_recovers_shifts(rng):
         assert abs(cy[0] - 4 * vy[b]) < 0.3, (b, cy)
 
 
-def test_register_fast_tile_batched_matches_per_tile(rng):
-    """The tile-grid-batched registration (ONE pallas grid over
-    (tiles, bands, ky-blocks) per section/group) reproduces the
-    lax.map-per-tile fused path: same spectra math, same peaks, same fit —
-    only the batching differs.  Covers full-section batching AND a group
-    size that leaves a remainder group."""
+def test_register_fast_bf16_matches_f32(rng):
+    """The GPU path's bfloat16 kx contraction and the CPU path's float32
+    one give the same fitted coefficients to the bf16 2e-3 px bound."""
     lines_mss, band_px = 512, 3072 // 4
     scene, pan = _scene_pair(rng, lines_mss, band_px)
     vy = [0, -1, 1, 0]
@@ -60,30 +57,28 @@ def test_register_fast_tile_batched_matches_per_tile(rng):
     mss = np.stack(
         [np.roll(np.roll(scene, vy[b], 0), vx[b], 1) for b in range(4)]
     )
-    kw = dict(
-        slices=8, n_sections=1, win=(16, 16), use_fused=True, interpret=True
+    kw = dict(slices=8, n_sections=1, win=(16, 16))
+    c_f32, nv_f32 = register_fast(
+        jnp.asarray(pan), jnp.asarray(mss), dot_dtype=jnp.float32, **kw
     )
-    c_map, nv_map = register_fast(jnp.asarray(pan), jnp.asarray(mss), **kw)
-    for section_batch, label in ((8, "full-section"), (3, "remainder")):
-        c_b, nv_b = register_fast(
-            jnp.asarray(pan), jnp.asarray(mss),
-            section_batch=section_batch, **kw
-        )
-        assert np.array_equal(np.asarray(nv_b), np.asarray(nv_map))
-        for b in range(4):
-            for k in range(2):
-                d = np.max(
-                    np.abs(np.asarray(c_b[b][k]) - np.asarray(c_map[b][k]))
-                )
-                assert d < 1e-4, (label, b, k, d)
+    c_bf16, nv_bf16 = register_fast(
+        jnp.asarray(pan), jnp.asarray(mss), dot_dtype=jnp.bfloat16, **kw
+    )
+    assert np.array_equal(np.asarray(nv_bf16), np.asarray(nv_f32))
+    for b in range(4):
+        for k in range(2):
+            d = np.max(
+                np.abs(np.asarray(c_bf16[b][k]) - np.asarray(c_f32[b][k]))
+            )
+            assert d < 2e-3, (b, k, d)
 
 
 def test_register_fast_inline_mss_rrc_matches_precorrected(rng):
     """``mss_params`` RRCs only the sampled band tiles inline (the staged
     estimate's path — the full corrected bands are never materialised);
     the coefficients must be bit-identical to registering against
-    fully-RRC'd band strips, on the unfused, fused(interpret) and
-    tile-batched paths alike."""
+    fully-RRC'd band strips, with the float32 and bfloat16 contractions
+    alike."""
     from opticalimageprocessor_tpu.ops import rrc
 
     lines_mss, band_px = 512, 3072 // 4
@@ -104,9 +99,8 @@ def test_register_fast_inline_mss_rrc_matches_precorrected(rng):
     mss_c = jnp.stack([rrc.rrc_apply(mss_d[b], mp[b]) for b in range(4)])
     kw = dict(slices=8, n_sections=1, win=(16, 16))
     for extra in (
-        dict(use_fused=False),
-        dict(use_fused=True, interpret=True),
-        dict(use_fused=True, interpret=True, section_batch=3),
+        dict(dot_dtype=jnp.float32),
+        dict(dot_dtype=jnp.bfloat16),
     ):
         c_pre, nv_pre = register_fast(jnp.asarray(pan), mss_c, **kw, **extra)
         c_inl, nv_inl = register_fast(
@@ -128,7 +122,7 @@ def test_register_fast_scan_unroll_matches_lax_map(rng):
     lines_mss, band_px = 512, 3072 // 4
     scene, pan = _scene_pair(rng, lines_mss, band_px)
     mss = np.stack([np.roll(scene, b - 2, 1) for b in range(4)])
-    kw = dict(slices=8, n_sections=1, win=(16, 16), use_fused=False)
+    kw = dict(slices=8, n_sections=1, win=(16, 16), dot_dtype=jnp.float32)
     c_map, nv_map = register_fast(jnp.asarray(pan), jnp.asarray(mss), **kw)
     for unroll in (2, 3, 8):
         c_u, nv_u = register_fast(
@@ -400,8 +394,8 @@ def test_staged_pipeline_donate_inputs(rng):
 
 
 def test_pipeline_odd_strip_lengths(rng):
-    """Arbitrary (prime-ish) strip lengths must not break the fast path's
-    MXU DFT factorisation (stt window heights are rounded to x64)."""
+    """Arbitrary (prime-ish) strip lengths must not break the fast path
+    (stt window heights are rounded to x64)."""
     import jax
     import jax.numpy as jnp
 

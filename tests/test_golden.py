@@ -66,7 +66,6 @@ def test_golden_rrc(outputs, expected):
         rrc.rrc_apply(
             jnp.asarray(pan),
             jnp.asarray(rrc.split_rrc_params(kb[:, 0], kb[:, 1])),
-            use_pallas=False,
         )
     )
     assert _sha(out.astype("<u2")) == expected["pan_rrc_sha"]

@@ -284,3 +284,16 @@ def test_native_scan_aos_matches_numpy(rng):
     assert ni == res.invalid.size
     assert cursor == res.cursor
     np.testing.assert_array_equal(payload, np_payload)
+
+
+def test_native_library_builds_from_committed_sources(tmp_path):
+    """A fresh checkout has no native/build/: the loader builds it there
+    from native/build.sh and the committed sources."""
+    import os
+    import shutil
+
+    for name in ("build.sh", "oipnative.cpp"):
+        shutil.copy(os.path.join(native._NATIVE_DIR, name), tmp_path / name)
+    path = native.build_library(str(tmp_path))
+    assert path == str(tmp_path / "build" / "liboipnative.so")
+    assert os.listdir(tmp_path / "build") == ["liboipnative.so"]

@@ -106,7 +106,7 @@ def test_remap_dynamic_matches_static_plan(rng):
     )
     diff = np.abs(want.astype(int) - got.astype(int))
     # static plan computes maps in float64-then-cast and accumulates in the
-    # oracle's grouped VPU order; the fast path is all-f32 with an MXU
+    # oracle's grouped order; the fast path is all-f32 with a
     # column matmul -> last-ulp differences flip rounding on a few % of
     # pixels, never beyond 1 DN
     assert diff.max() <= 1
@@ -214,7 +214,7 @@ def test_align_step_min_count_error(rng):
 
 
 def test_two_process_align_matches_single(tmp_path):
-    """Multi-host (DCN) launch path: two spawned processes, 4 virtual CPU
+    """Multi-process launch path: two spawned processes, 4 virtual CPU
     devices each, join one 8-device 'line' mesh via OIP_DIST_* env +
     jax.distributed and run the sharded align step with per-host shard
     ingest.  The replicated fit coefficients and the reassembled aligned
@@ -819,7 +819,7 @@ def test_mesh_quantized_and_rrcpan_match_host(rng, tmp_path):
     )
     # same quantized-grid maps, same whole-image y (single host section
     # starts at y=0 == the mesh's global y0): within 1 DN (XLA:CPU
-    # codegen fuse noise; bit-exact on TPU)
+    # codegen fuse noise)
     d = np.abs(
         mesh_aligned.astype(np.int64) - host_aligned.astype(np.int64)
     )
@@ -958,7 +958,7 @@ def test_cli_fails_loudly_on_misconfigured_distributed_env():
     env["OIP_DIST_COORD"] = "127.0.0.1:1"
     env.pop("OIP_DIST_NPROCS", None)
     env.pop("OIP_DIST_PROCID", None)
-    env["OIP_JAX_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.path.dirname(os.path.dirname(__file__))
     res = subprocess.run(
         [

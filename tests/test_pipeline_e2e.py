@@ -274,7 +274,7 @@ def test_preprocessor_row_accessors_match_whole_strip(
 
 
 def test_preprocessor_fast_mode_matches_parity(synthetic_scene, tmp_path):
-    """--fast (blocked-MXU resample, whole-strip streaming) stays within
+    """--fast (blocked-matmul resample, whole-strip streaming) stays within
     1 DN of the parity path away from the section seams the parity path
     inherits from the reference."""
     from opticalimageprocessor_tpu.models.preprocessor import PreProcessor
@@ -432,7 +432,7 @@ def test_prestitch_and_stitch_raw(tmp_path, rng):
 
 
 def test_prestitch_fast_matches_parity(tmp_path, rng):
-    """Fast prestitch (blocked-MXU constant-shift remap) matches the parity
+    """Fast prestitch (blocked-matmul constant-shift remap) matches the parity
     SectionaryRemap output away from section seams/edges."""
     from opticalimageprocessor_tpu.models import stitcher as st
 

@@ -55,8 +55,7 @@ def test_remap_polynomial_matches_oracle(cx, cy, quantized, rng):
     )
     diff = np.abs(want.astype(np.int32) - got.astype(np.int32))
     # XLA's CPU emitter fuses multiply-adds (FMA), flipping cvRound on a
-    # small fraction of last-ulp-boundary pixels vs the numpy oracle; the
-    # TPU backend reproduces the oracle bit-for-bit (verified on hardware).
+    # small fraction of last-ulp-boundary pixels vs the numpy oracle.
     assert diff.max() <= 1, (
         f"max {diff.max()} at {np.unravel_index(diff.argmax(), diff.shape)}"
     )
@@ -99,45 +98,6 @@ def test_remap_constant_shift_matches_oracle(dx, dy, rng):
     assert (diff > 0).mean() < 0.02, f"count {(diff>0).sum()}"
 
 
-def test_row_pass_pallas_matches_xla(rng):
-    """The opt-in Pallas vertical-MAC kernel (tile-resident row pass,
-    docs/PERF.md A/B queue) is bit-identical to the XLA masked-MAC path
-    through the full fast band remap, including per-column iy0 variation
-    and chunk/halo handling (interpret mode on CPU)."""
-    import jax.numpy as jnp
-
-    from opticalimageprocessor_tpu.ops import resample
-
-    src = jnp.asarray(rng.integers(0, 65536, (512, 256), dtype=np.uint16))
-    # strong quadratic: floor(G) varies across columns within the tile
-    cx = jnp.asarray([1.5, -2.0e-4], jnp.float32)
-    cy = jnp.asarray([-2.2, 8.0e-3, -1.5e-5], jnp.float32)
-    want = np.asarray(
-        resample.remap_band_fast_chunked(
-            src, cx, cy, chunk_rows=128, row_bound=4,
-        )
-    )
-    try:
-        resample.set_row_pass_pallas(True, interpret=True)
-        got = np.asarray(
-            resample.remap_band_fast_chunked(
-                src, cx, cy, chunk_rows=128, row_bound=4,
-            )
-        )
-    finally:
-        resample.set_row_pass_pallas(False)
-    np.testing.assert_array_equal(got, want)
-    # direct kernel-vs-fallback check on the raw f32 contract too
-    g = resample._band_g(cy, 256)
-    cu = resample._row_pass_coeffs(g, 256, 4)
-    padded = jnp.asarray(rng.random((200 + cu.shape[0] - 1, 256), np.float32))
-    a = np.asarray(
-        resample._fast_row_pass_pallas(padded, cu, 200, 4, interpret=True)
-    )
-    b = np.asarray(resample._fast_row_pass_from_cu(padded, cu, 200))
-    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
-
-
 def test_remap_const_fast_matches_generic(rng):
     """The constant-shift fast remap (traced-scalar dx/dy, 4 direct row
     taps) equals the generic polynomial fast path on the same translation."""
@@ -165,47 +125,33 @@ def test_remap_const_fast_matches_generic(rng):
         assert d.max() <= 1, (dx, dy, d.max())
 
 
-def test_fused_remap_pallas_matches_staged(rng):
-    """The opt-in fused col+row Pallas kernel (one HBM read + one write,
-    the remap's speed-of-light shape — docs/PERF.md) matches the staged
-    column-matmul + masked-MAC path within the fast-path envelope
-    (<= 1 DN: the per-stripe dot's f32 accumulation order differs from
-    the blocked einsum) through the full chunked band remap, including
-    non-multiple-of-tile row counts and per-column floor(G) variation."""
+@pytest.mark.parametrize("chunk_rows", [128, 256, 700])
+def test_fast_band_remap_chunking_envelope(rng, chunk_rows):
+    """The chunked fast band remap reads true neighbour rows at chunk
+    seams: every chunk size agrees with the unchunked remap within the
+    fast-path envelope (<= 1 DN), including non-multiple-of-chunk row
+    counts and per-column floor(G) variation."""
     import jax.numpy as jnp
-
-    from opticalimageprocessor_tpu.ops import resample
 
     src = jnp.asarray(rng.integers(0, 65536, (700, 1536), dtype=np.uint16))
     cx = jnp.asarray([3.7, -2.1e-4], jnp.float32)
     cy = jnp.asarray([-1.9, 6.5e-4, -3.0e-7], jnp.float32)
-    want = np.asarray(
+    kw = dict(row_bound=4, col_block=128, col_halo=16)
+    want = np.asarray(resample.remap_band_fast(src, cx, cy, **kw))
+    got = np.asarray(
         resample.remap_band_fast_chunked(
-            src, cx, cy, chunk_rows=256, row_bound=4,
-            col_block=128, col_halo=16,
+            src, cx, cy, chunk_rows=chunk_rows, **kw
         )
     )
-    try:
-        resample.set_fused_remap_pallas(True, interpret=True)
-        got = np.asarray(
-            resample.remap_band_fast_chunked(
-                src, cx, cy, chunk_rows=256, row_bound=4,
-                col_block=128, col_halo=16,
-            )
-        )
-    finally:
-        resample.set_fused_remap_pallas(False)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= 1, f"max {diff.max()}"
     assert (diff > 0).mean() < 0.02, f"count {(diff > 0).sum()}"
 
 
-def test_fused_remap_pallas_oracle_envelope(rng):
-    """Fused kernel vs the parity-grade plan path: same <= 1 DN fast-path
-    envelope the staged fast remap is locked to."""
+def test_fast_band_remap_oracle_envelope(rng):
+    """Chunked fast band remap vs the parity-grade plan path: the <= 1 DN
+    fast-path envelope."""
     import jax.numpy as jnp
-
-    from opticalimageprocessor_tpu.ops import resample
 
     src = jnp.asarray(rng.integers(0, 65536, (320, 512), dtype=np.uint16))
     cx = jnp.asarray([1.25, -1.0e-4], jnp.float32)
@@ -215,55 +161,49 @@ def test_fused_remap_pallas_oracle_envelope(rng):
         quantized_coords=False,
     )
     want = np.asarray(resample.remap_section_u16(src, plan))
-    try:
-        resample.set_fused_remap_pallas(True, interpret=True)
-        got = np.asarray(
-            resample.remap_band_fast_chunked(
-                src, cx, cy, chunk_rows=128, row_bound=4,
-                col_block=128, col_halo=16,
-            )
+    got = np.asarray(
+        resample.remap_band_fast_chunked(
+            src, cx, cy, chunk_rows=128, row_bound=4,
+            col_block=128, col_halo=16,
         )
-    finally:
-        resample.set_fused_remap_pallas(False)
+    )
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= 1, f"max {diff.max()}"
 
 
-def test_fused_stitch_tail_pallas_matches_staged(rng):
-    """The fused RRC + prestitch-remap + concat Pallas tail (traced
-    iy0/weights from SMEM, strip-border masking in-kernel) is
-    bit-identical to the staged chunked path in interpret mode, across
-    positive/negative/zero dy."""
+@pytest.mark.parametrize("dx,dy", [(-3.2, 2.4), (1.7, -2.9), (0.0, 0.0)])
+def test_stitch_tail_matches_separate_stages(rng, dx, dy):
+    """The fused chunked dual-CMOS tail (RRC + prestitch remap + seam
+    concat in one pass) equals the separate stages: RRC(PAN1) on the
+    left, the constant-shift remap of RRC(PAN2) on the right."""
     import jax.numpy as jnp
 
-    from opticalimageprocessor_tpu.ops import resample, rrc
+    from opticalimageprocessor_tpu.ops import rrc
 
     rows, width, fold = 700, 1536, 100
     pan1 = jnp.asarray(rng.integers(0, 65535, (rows, width), np.uint16))
     pan2 = jnp.asarray(rng.integers(0, 65535, (rows, width), np.uint16))
-    p1 = jnp.asarray(
-        rrc.split_rrc_params(
-            0.98 + 0.04 * rng.random(width), rng.normal(0, 20, width)
+    p1, p2 = (
+        jnp.asarray(
+            rrc.split_rrc_params(
+                0.98 + 0.04 * rng.random(width), rng.normal(0, 20, width)
+            )
         )
+        for _ in range(2)
     )
-    p2 = jnp.asarray(
-        rrc.split_rrc_params(
-            0.98 + 0.04 * rng.random(width), rng.normal(0, 20, width)
-        )
+    kw = dict(chunk_rows=256, row_bound=8, col_block=128, col_halo=16)
+    stitched, prestt = resample.remap_const_stitch_chunked(
+        pan1, pan2, p1, p2, jnp.float32(dx), jnp.float32(dy), fold,
+        want_prestt=True, **kw,
     )
-    for dx, dy in ((-3.2, 2.4), (1.7, -2.9), (0.0, 0.0)):
-        args = (
-            pan1, pan2, p1, p2, jnp.float32(dx), jnp.float32(dy), fold
-        )
-        kw = dict(
-            chunk_rows=256, row_bound=8, col_block=128, col_halo=16,
-            want_prestt=True,
-        )
-        want, want_p = resample.remap_const_stitch_chunked(*args, **kw)
-        try:
-            resample.set_fused_remap_pallas(True, interpret=True)
-            got, got_p = resample.remap_const_stitch_chunked(*args, **kw)
-        finally:
-            resample.set_fused_remap_pallas(False)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-        np.testing.assert_array_equal(np.asarray(got_p), np.asarray(want_p))
+    want_p = resample.remap_const_fast_chunked(
+        rrc.rrc_apply(pan2, p2), jnp.float32(dx), jnp.float32(dy), **kw
+    )
+    np.testing.assert_array_equal(np.asarray(prestt), np.asarray(want_p))
+    want_left = np.asarray(rrc.rrc_apply(pan1, p1))[:, : width - fold]
+    np.testing.assert_array_equal(
+        np.asarray(stitched)[:, : width - fold], want_left
+    )
+    np.testing.assert_array_equal(
+        np.asarray(stitched)[:, width - fold :], np.asarray(prestt)[:, fold:]
+    )

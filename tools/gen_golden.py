@@ -22,10 +22,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")
-
 OUT = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tests", "golden",
@@ -97,7 +93,6 @@ def main() -> None:
             __import__("jax.numpy", fromlist=["asarray"]).asarray(
                 rrc_ops.split_rrc_params(k, b)
             ),
-            use_pallas=False,
         )
     )
 

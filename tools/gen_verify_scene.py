@@ -1,113 +1,39 @@
-"""Generate a synthetic scene + AOS downlink for CLI verification (batch framing)."""
+"""Write the verification scene: a dual-CMOS PAN pair with a 200-column
+overlap, both sensors' 4-band MSS, RRC tables and an AOS downlink of
+CMOS1 (raw tiles, CRC-corrupt frames, one missing image frame).
+
+    python tools/gen_verify_scene.py OUT_DIR [--lines 8192]
+
+The construction is chip_smoke.py's (make_scene / write_inputs); the
+ground truth is saved beside the inputs as scene.npy / scene2.npy.
+"""
+
+from __future__ import annotations
+
+import argparse
 import os
 import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import chip_smoke  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
 
-from opticalimageprocessor_tpu.formats import aos, rrc_csv
-from opticalimageprocessor_tpu.ops import resample
-from opticalimageprocessor_tpu.utils import native
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("out", help="output directory (created)")
+    ap.add_argument("--lines", type=int, default=8192,
+                    help="PAN lines (a multiple of 1024, > 7168)")
+    args = ap.parse_args()
+    sc = chip_smoke.make_scene(args.lines)
+    paths = chip_smoke.write_inputs(sc, args.out, with_downlink=True)
+    np.save(os.path.join(args.out, "scene.npy"), sc["scene"])
+    np.save(os.path.join(args.out, "scene2.npy"), sc["scene2"])
+    for key, path in paths.items():
+        print(f"{key}: {path}")
 
-OUT = "/tmp/verify"
-N_FRAMES = 6
-LINES_MSS = 256 * N_FRAMES          # 1536
-LINES_PAN = 1024 * N_FRAMES         # 6144
-W = 12288
-BAND_PX = 3072
 
-rng = np.random.default_rng(7)
-scene = rng.integers(2000, 42000, (LINES_MSS, BAND_PX)).astype(np.uint16)
-pan_true = np.clip(
-    np.rint(np.asarray(resample.upsample4_f32(scene.astype(np.float32)))),
-    0, 65535,
-).astype(np.uint16)
-
-# MSS bands: known integer rolls of the scene
-vy = [0, -1, 1, 0]
-vx = [1, 0, -1, 2]
-bands = [np.roll(np.roll(scene, vy[b], axis=0), vx[b], axis=1) for b in range(4)]
-mss_interleaved = np.stack(bands, axis=1).reshape(LINES_MSS, W)
-
-# inverse-RRC the PAN so --do-rrc4pan does real work: RRC(pan_dl) ~= pan_true
-k, b = 1.02, -100.0
-pan_dl = np.clip(np.rint((pan_true.astype(np.float64) - b) / k), 0, 65535).astype(np.uint16)
-rrc_csv.save_rrc_params(os.path.join(OUT, "pan.rrc"), np.tile([[k, b]], (W, 1)))
-for i in range(1, 5):
-    rrc_csv.save_rrc_params(os.path.join(OUT, f"b{i}.rrc"), np.tile([[1.0, 0.0]], (BAND_PX, 1)))
-
-# ---- IMDT: frames of 1024 PAN lines + 256 MSS lines ----
-imdt = b"".join(
-    aos.build_image_frame(
-        pan_dl[i * 1024 : (i + 1) * 1024],
-        mss_interleaved[i * 256 : (i + 1) * 256],
-        seq=i + 1,
-    )
-    for i in range(N_FRAMES)
-)
-print("IMDT bytes:", len(imdt))
-
-# ---- IMTR wrap (vectorised) ----
-pay_len = aos.IMTR_IMGDATA_BYTES  # 866
-n_imtr = -(-len(imdt) // pay_len)
-pay = np.zeros((n_imtr, pay_len), np.uint8)
-flat = np.frombuffer(imdt, np.uint8)
-pay.reshape(-1)[: flat.size] = flat
-frames = np.zeros((n_imtr, aos.IMTR_FRAME_BYTES), np.uint8)
-frames[:, 0:4] = np.frombuffer(aos.IMTR_SIG, np.uint8)
-seq = np.arange(1, n_imtr + 1, dtype=np.uint32)
-frames[:, 4] = seq >> 24
-frames[:, 5] = (seq >> 16) & 0xFF
-frames[:, 6] = (seq >> 8) & 0xFF
-frames[:, 7] = seq & 0xFF
-frames[:, aos.IMTR_CHID_OFF] = aos.IMTR_CHID_CMOS1
-frames[:, aos.IMTR_DTMARK_OFF] = aos.IMTR_DTMARK_IMG
-frames[:, aos.IMTR_IMGDATA_OFF : aos.IMTR_IMGDATA_OFF + pay_len] = pay
-buf = np.ascontiguousarray(frames).reshape(-1)
-crcs = native.crc16_many(
-    buf, np.arange(n_imtr, dtype=np.int64) * aos.IMTR_FRAME_BYTES, aos.IMTR_CRC_OFF
-)
-frames[:, aos.IMTR_CRC_OFF] = crcs >> 8
-frames[:, aos.IMTR_CRC_OFF + 1] = crcs & 0xFF
-frames[:, aos.IMTR_ENDSIG_OFF : aos.IMTR_ENDSIG_OFF + 4] = np.frombuffer(
-    aos.IMTR_ENDSIG, np.uint8
-)
-imtr_stream = frames.reshape(-1)
-print("IMTR frames:", n_imtr)
-
-# ---- AOS wrap (vectorised) ----
-n_aos = -(-imtr_stream.size // aos.AOS_DATA_BYTES)
-data = np.zeros((n_aos, aos.AOS_DATA_BYTES), np.uint8)
-data.reshape(-1)[: imtr_stream.size] = imtr_stream
-af = np.zeros((n_aos, aos.AOS_FRAME_BYTES), np.uint8)
-af[:, 0:4] = np.frombuffer(aos.SYNC_BYTES, np.uint8)
-af[:, 4] = 0x40
-af[:, aos.AOS_VCID_OFF] = 1
-s3 = np.arange(n_aos, dtype=np.uint32)
-af[:, 6] = (s3 >> 16) & 0xFF
-af[:, 7] = (s3 >> 8) & 0xFF
-af[:, 8] = s3 & 0xFF
-af[:, aos.AOS_DATA_OFF : aos.AOS_DATA_OFF + aos.AOS_DATA_BYTES] = data
-abuf = np.ascontiguousarray(af).reshape(-1)
-acrc = native.crc16_many(
-    abuf,
-    np.arange(n_aos, dtype=np.int64) * aos.AOS_FRAME_BYTES + aos.AOS_HEADER_OFF,
-    aos.AOS_CRC_OFF - aos.AOS_HEADER_OFF,
-)
-af[:, aos.AOS_CRC_OFF] = acrc >> 8
-af[:, aos.AOS_CRC_OFF + 1] = acrc & 0xFF
-aos_path = os.path.join(OUT, "KASHI_TJ3-01_20220817_031259_1.dat")
-af.reshape(-1).tofile(aos_path)
-print("AOS file:", aos_path, os.path.getsize(aos_path), "bytes,", n_aos, "frames")
-
-# ground truth for later checks
-np.save(os.path.join(OUT, "scene.npy"), scene)
-np.save(os.path.join(OUT, "pan_true.npy"), pan_true)
-mss_interleaved.astype("<u2").tofile(os.path.join(OUT, "mss_truth.raw"))
-pan_dl.astype("<u2").tofile(os.path.join(OUT, "pan_dl_truth.raw"))
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,9 @@
 Times each sub-program of make_device_pipeline separately (jit-wrapped,
 forced readback, min/median of N) plus the whole pipeline, so the PERF.md
 "Where the time goes" table can be refreshed in ONE same-process run
-(cross-run comparisons are invalid on this host — docs/PERF.md).
+(times from two runs may come from two cards with other power limits).
 
-Usage: python tools/stage_split.py [--lines 32768] [--n 5]
+Usage: python tools/stage_split.py [--lines 65536] [--n 5]
 """
 
 from __future__ import annotations
@@ -17,14 +17,13 @@ import sys
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from common import ensure_platform, timeit  # noqa: E402
-
-ensure_platform()
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from common import card, timeit  # noqa: E402
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--lines", type=int, default=32768)
+    ap.add_argument("--lines", type=int, default=65536)
     ap.add_argument("--n", type=int, default=5)
     args = ap.parse_args()
 
@@ -38,11 +37,6 @@ def main():
     )
     from opticalimageprocessor_tpu.models import device_pipeline as dp
     from opticalimageprocessor_tpu.ops import resample, rrc
-
-    if jax.default_backend() == "tpu":
-        from opticalimageprocessor_tpu.ops import fft_mxu
-
-        fft_mxu.set_stage_dtype(jnp.bfloat16)  # bench.py's fast mode
 
     rng = np.random.default_rng(0)
     lines = args.lines
@@ -78,7 +72,10 @@ def main():
     cx = jnp.asarray([0.8, -1.2e-5], jnp.float32)
     cy = jnp.asarray([1.5, 1.0e-5, -3e-10], jnp.float32)
 
-    print(f"backend={jax.default_backend()} lines={lines}")
+    d = jax.devices()[0]
+    print(f"device={d.platform}/{d.device_kind} lines={lines}")
+    if d.platform == "gpu":
+        print(f"card: {card()}")
 
     # RRC of the 4 MSS bands (feeds registration + align)
     f_rrc = jax.jit(
@@ -90,7 +87,7 @@ def main():
     mn, md = timeit(f_rrc, (mss, msp), args.n)
     print(f"rrc_mss x4:        min={mn:6.1f} med={md:6.1f} ms")
 
-    # registration (tile-inline PAN RRC, band-batched fused kernel)
+    # registration (tile-inline PAN RRC; band side as ops/backend picks)
     f_reg = jax.jit(
         lambda p, m, pp: dp.register_fast(p, m, pan_params=pp)[1]
     )
